@@ -1,0 +1,230 @@
+"""Build and ctypes binding of the K-step CUDA kernel (``csrc/kstep.cu``).
+
+The source is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, under ``build/torch_kernels/`` at the root of
+the checkout, keyed by a hash of the source and the flags. It includes no
+PyTorch header, so the build takes seconds, not minutes. Pointers come from
+``tensor.data_ptr()`` and the stream from
+``torch.cuda.current_stream().cuda_stream``; the launch returns the CUDA error
+code, and the wrapper raises if it is not 0. There is no fallback: on a CUDA
+tensor the wrapper launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from hallthrusterpem_tpu_torch.constants import ELECTRON_MASS, FUNDAMENTAL_CHARGE
+from hallthrusterpem_tpu_torch.models.thruster.config import SolverConfig
+from hallthrusterpem_tpu_torch.models.thruster.fused_step import (
+    N_SLOTS,
+    check_supported,
+    lanes_for,
+    n_state_for,
+    rate_polys,
+)
+from hallthrusterpem_tpu_torch.models.thruster.rates import K_EN
+
+_E = FUNDAMENTAL_CHARGE
+_ME = ELECTRON_MASS
+SOURCE = Path(__file__).parent / "csrc" / "kstep.cu"
+#: precise math and no FMA contraction: the kernel rounds as the plain version does
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+
+#: launches of each kernel since the last reset (counted where the kernel is launched)
+launch_counts = {"kstep": 0}
+#: what the last build did: seconds, whether it was cached, nvcc's -Xptxas -v lines
+build_info: dict = {}
+
+_lib = None
+_lock = threading.Lock()
+_coef_cache: dict = {}
+
+
+def reset_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+class KParams(ctypes.Structure):
+    """Mirror of ``struct KParams`` in ``csrc/kstep.cu`` (same field order)."""
+
+    _fields_ = (
+        [(n, ctypes.c_int) for n in (
+            "NC", "i0", "K", "avg_start", "num_steps", "n_levels", "solve_plume", "div_corr",
+            "anode_sheath", "implicit_inel", "reconstruct", "ion_wall", "sheath_wall")]
+        + [(n, ctypes.c_float) for n in (
+            "dz", "mi", "inv_mi", "inv_dz", "half_inv_dz", "inv_dt", "c15_inv_dt", "neg_dt", "dt",
+            "A_ch", "inv_A_ch", "a_i", "a_i_sq", "a_i2", "k_en", "rho_floor", "rho_ceil",
+            "ne_floor", "Te_min", "Te_max", "anode_Te", "z_len", "L_ch", "nu_ew_c", "R_o", "R_i",
+            "inv_area", "E", "E_ME", "inv_E", "two_pi_me", "two_thirds", "ten_ninth",
+            "wall_recycling", "e_wall", "gmax", "ln_cross", "sq_mi_2pi_me", "coef_sheath",
+            "wall_energy_scale", "ex_energy")]
+        + [(n, ctypes.c_float * 3) for n in ("bohm_c", "zq", "zqE", "c_iw", "inv_mi_zq", "iz_c")]
+        + [("rxn_e", ctypes.c_float * 6)]
+    )
+
+
+def kernel_params(cfg: SolverConfig) -> KParams:
+    """The kernel's config constants: each is the float64 value of the constant
+    subexpression of the model, rounded once to float32 by ctypes."""
+    check_supported(cfg)
+    mi, dt, dz = cfg.mi, cfg.dt, cfg.dz
+    g = cfg.geometry
+    rxn, (_, _, ex_energy) = rate_polys(cfg)
+    zq = [1.0, 2.0, 3.0]
+    inv_mi = 1.0 / mi
+    a_i = float(np.sqrt(1.380649e-23 * cfg.ion_temp_K / mi))
+    p = KParams(
+        NC=cfg.nc, avg_start=cfg.avg_start_step, num_steps=cfg.num_steps,
+        n_levels=max(1, int(np.ceil(np.log2(max(cfg.nc, 2))))),
+        solve_plume=int(cfg.solve_plume), div_corr=int(cfg.apply_thrust_divergence_correction),
+        anode_sheath=int(cfg.anode_sheath), implicit_inel=int(cfg.implicit_inelastic),
+        reconstruct=int(cfg.reconstruct), ion_wall=int(cfg.ion_wall_losses),
+        sheath_wall=int(cfg.wall_loss_type == "sheath"),
+        dz=dz, mi=mi, inv_mi=inv_mi, inv_dz=1.0 / dz, half_inv_dz=0.5 * (1.0 / dz),
+        inv_dt=1.0 / dt, c15_inv_dt=1.5 * (1.0 / dt), neg_dt=-dt, dt=dt,
+        A_ch=g.channel_area, inv_A_ch=1.0 / g.channel_area, a_i=a_i, a_i_sq=a_i * a_i,
+        a_i2=1.380649e-23 * cfg.ion_temp_K / mi, k_en=K_EN.get(cfg.propellant, 2.5e-13),
+        rho_floor=float(1e10 * mi), rho_ceil=1e21 * mi, ne_floor=cfg.ne_floor,
+        Te_min=cfg.Te_min, Te_max=cfg.Te_max, anode_Te=cfg.anode_Te,
+        z_len=cfg.domain[1] - cfg.domain[0], L_ch=g.channel_length,
+        nu_ew_c=cfg.electron_wall_losses * cfg.wall_momentum_scale * 1e7,
+        R_o=g.outer_radius, R_i=g.inner_radius,
+        inv_area=1.0 / (g.outer_radius**2 - g.inner_radius**2),
+        E=_E, E_ME=_E / _ME, inv_E=1.0 / _E, two_pi_me=2.0 * np.pi * _ME,
+        two_thirds=2.0 / 3.0, ten_ninth=10.0 / 9.0, wall_recycling=cfg.wall_recycling,
+        e_wall=float(bool(cfg.electron_wall_losses)), gmax=cfg.see_gamma_max,
+        ln_cross=float(np.log(cfg.see_crossover_eV)),
+        sq_mi_2pi_me=float(np.sqrt(mi / (2 * np.pi * _ME))),
+        coef_sheath=float(cfg.wall_energy_scale * 0.6 * np.sqrt(_E / mi) / g.channel_gap / 1.5),
+        wall_energy_scale=cfg.wall_energy_scale, ex_energy=ex_energy,
+    )
+    p.bohm_c[:] = [float(np.float32(-cfg.mdot_bohm_fraction) * np.sqrt(np.float32(z), dtype=np.float32))
+                   for z in zq]
+    p.zq[:] = zq
+    p.zqE[:] = [z * _E for z in zq]
+    p.c_iw[:] = [float(0.6 * np.sqrt(z) / g.channel_gap) for z in zq]
+    p.inv_mi_zq[:] = [inv_mi * z for z in zq]
+    p.iz_c[:] = [g.channel_area * _E * (z + 1) / mi for z in range(3)]
+    p.rxn_e[:] = [e * inv_mi for *_, e in rxn] + [0.0] * (6 - len(rxn))
+    return p
+
+
+def rate_coefficients(cfg: SolverConfig) -> np.ndarray:
+    """Flat float32 coefficient array read by the kernel: for each reaction its
+    11 log-poly coefficients then the 10 of d(ln k)/d(ln Te); excitation last."""
+    rxn, (ex, dex, _) = rate_polys(cfg)
+    parts = [np.concatenate([c, dc]) for c, dc, *_ in rxn] + [np.concatenate([ex, dex])]
+    assert all(len(x) == 21 for x in parts)
+    return np.concatenate(parts).astype(np.float32)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the K-step kernel")
+
+
+def build_dir() -> Path:
+    """``build/torch_kernels`` at the root of the checkout."""
+    return Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+
+def _build() -> Path:
+    src = SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = build_dir()
+    lib_path = out_dir / f"kstep_{key}.so"
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists():
+        build_info.update(seconds=0.0, cached=True, path=str(lib_path),
+                          log=log_path.read_text() if log_path.exists() else "")
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / lib_path.name
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stdout}\n{proc.stderr}")
+        log = proc.stdout + proc.stderr
+        log_path.write_text(log)
+        os.replace(tmp_lib, lib_path)  # atomic: a concurrent build never sees a partial file
+    build_info.update(seconds=time.perf_counter() - t0, cached=False, path=str(lib_path), log=log)
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            lib.kstep_params_size.restype = ctypes.c_int
+            lib.kstep_launch.restype = ctypes.c_int
+            lib.kstep_launch.argtypes = (
+                [ctypes.POINTER(KParams)] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8)
+            size = lib.kstep_params_size()
+            if size != ctypes.sizeof(KParams):
+                raise RuntimeError(f"KParams layout mismatch: C {size} B, ctypes {ctypes.sizeof(KParams)} B")
+            _lib = lib
+    return _lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"kstep: {name} must be a contiguous float32 {shape} tensor on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def kstep_cuda(state, prof, sacc, consts: dict, i0: int, K: int, cfg: SolverConfig) -> None:
+    """Launch the K-step kernel for steps ``i0 .. i0+K-1``, in place on ``state``,
+    ``prof`` and ``sacc``, on the current stream of their device."""
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"kstep_cuda: tensors must lie on a CUDA device, got {dev}")
+    Z, LN = cfg.ncharge, lanes_for(cfg)
+    B = state.shape[1]
+    _check("state", state, (n_state_for(cfg), B, LN), dev)
+    _check("prof", prof, (Z + 4, B, LN), dev)
+    _check("sacc", sacc, (B, N_SLOTS), dev)
+    _check("nu_anom", consts["nu_anom"], (B, LN), dev)
+    _check("omega_ce", consts["omega_ce"], (B, LN), dev)
+    _check("scalars", consts["scalars"], (B, N_SLOTS), dev)
+    if K <= 0:
+        raise ValueError(f"kstep: K={K} must be positive")
+    lib = load_library()
+    ckey = (cfg, dev)
+    if ckey not in _coef_cache:
+        _coef_cache[ckey] = (kernel_params(cfg),
+                             torch.as_tensor(rate_coefficients(cfg), device=dev))
+    params, coef = _coef_cache[ckey]
+    params.i0, params.K = int(i0), int(K)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.kstep_launch(
+            ctypes.byref(params), Z, B, LN, state.data_ptr(), prof.data_ptr(), sacc.data_ptr(),
+            consts["nu_anom"].data_ptr(), consts["omega_ce"].data_ptr(),
+            consts["scalars"].data_ptr(), coef.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"kstep kernel launch failed with CUDA error {rc}")
+    launch_counts["kstep"] += 1

@@ -1,0 +1,36 @@
+"""The port and chip_smoke.py import without JAX, PyYAML, h5py, pandas or the
+JAX package: the machine with the card has none of them."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "yaml", "h5py", "pandas", "hallthrusterpem_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import hallthrusterpem_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 12
