@@ -8,10 +8,11 @@ Phases, each printed with its seconds:
 1. device: the card's name, and its name and power limit from ``nvidia-smi``;
 2. build: the K-step kernel (``csrc/kstep.cu``) with nvcc, and ptxas's
    register / shared-memory / spill lines;
-3. kernel against its plain PyTorch version on the card at full width
-   (fidelity (2,2): 202 cells, 256 lanes, 3 charge states, plume on; B = 64):
-   one K = 50 launch against 50 plain steps, every state array, profile sum and
-   accumulator slot; then 20 launches against 1,000 plain steps, the accumulators;
+3. kernel against its plain PyTorch version on the card at the main path's
+   shapes (fidelity (2,2): 202 cells, 256 lanes, 3 charge states, plume on;
+   B = 1024): one K = 50 launch against 50 plain steps from the same state, every
+   state array, profile sum and accumulator slot; then 20 launches against 1,000
+   plain steps, the accumulators;
 4. main path: ``CoupledPEM(model_fidelity=(2,2), duration=2e-5)`` (9,138 steps)
    at B = 1024, one warm run and two timed runs, with the launch count checked;
 5. coupled outputs against the plain version: B = 16, 914 steps;
@@ -129,13 +130,14 @@ def main() -> int:
             log("    " + line.strip())
     log(f"[2 build] done ({time.perf_counter() - t0:.2f} s)")
 
-    # ---- 3. kernel vs plain version on the card, full width
+    # ---- 3. kernel vs plain version on the card, at the main path's shapes
     t0 = time.perf_counter()
     dev = torch.device("cuda")
+    batch = 1024
     pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=args.duration, device=dev)
     cfg = dataclasses.replace(pem.cfg, average_start_time=0.0)  # accumulate from step 0
     gen = torch.Generator().manual_seed(7)
-    params, _ = _coupled_pre(default_coupled_inputs(64, gen, spread=0.08, device=dev), cfg)
+    params, _ = _coupled_pre(default_coupled_inputs(batch, gen, spread=0.08, device=dev), cfg)
     consts, state0, prof0, sacc0 = fs.init_carry(params, pem.base_B, cfg)
     physics = fs.Physics(cfg)
     K = fs.INNER_STEPS
@@ -149,27 +151,29 @@ def main() -> int:
 
     ks, kp, ka = run(fs.kstep, 1)
     ps, pp, pa = run(fs.kstep_plain, 1)
-    errs = [scaled_err(ks[j], ps[j]) for j in range(ks.shape[0])]
-    errs += [scaled_err(kp[j], pp[j]) for j in range(kp.shape[0])]
-    errs += [scaled_err(ka[:, j], pa[:, j]) for j in range(8)]
-    max_err = max(errs)
     for name, x in (("state", ks), ("prof", kp), ("sacc", ka)):
         assert torch.isfinite(x).all(), f"kernel {name} not finite"
-    log(f"[3 parity] 1 launch (K=50) vs 50 plain steps, B=64: max scaled error {max_err:.3e} "
-        f"over {len(errs)} arrays (tolerance {STATE_RTOL:g})")
+    pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kp[j], pp[j]) for j in range(kp.shape[0])]
+    pairs += [(ka[:, j], pa[:, j]) for j in range(fs.A_ICIR + 1)]
+    errs = [scaled_err(k, p) for k, p in pairs]
+    max_err = max(errs)
+    max_abs = max(float((k - p).abs().max()) for k, p in pairs)
+    log(f"[3 parity] 1 launch (K={K}) vs {K} plain steps, B={batch}: max scaled error {max_err:.3e} "
+        f"(tolerance {STATE_RTOL:g}), max absolute error {max_abs:.3e} over {len(pairs)} arrays")
     assert max_err < STATE_RTOL, errs
     ks, kp, ka = run(fs.kstep, 20)
     ps, pp, pa = run(fs.kstep_plain, 20)
     acc_err = max(float(((ka[:, j] - pa[:, j]).abs() / pa[:, j].abs().clamp_min(1e-30)).max())
                   for j in (fs.A_THRUST, fs.A_ID, fs.A_ID2, fs.A_IB0, fs.A_MDOT, fs.A_UEXIT))
     assert torch.equal(ka[:, fs.A_FAILED], pa[:, fs.A_FAILED])
-    log(f"[3 parity] 20 launches vs 1000 plain steps: accumulators max relative error "
+    log(f"[3 parity] 20 launches vs {20 * K} plain steps: accumulators max relative error "
         f"{acc_err:.3e} (tolerance {QOI_RTOL:g}) ({time.perf_counter() - t0:.2f} s)")
     assert acc_err < QOI_RTOL
+    # free phase 3's B = 1024 copies so phase 4's peak memory is the main path's own
+    del params, consts, state0, prof0, sacc0, ks, kp, ka, ps, pp, pa, pairs
 
     # ---- 4. main path: CoupledPEM at fidelity (2,2), B = 1024
     t0 = time.perf_counter()
-    batch = 1024
     n_launch = math.ceil(pem.cfg.num_steps / fs.INNER_STEPS)
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
@@ -241,7 +245,8 @@ def main() -> int:
 
     kernels = [{
         "name": "kstep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches["kstep"], "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": launches["kstep"], "max_abs_err": max_abs, "max_scaled_err": max_err,
+        "scaled_err_tolerance": STATE_RTOL, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }]

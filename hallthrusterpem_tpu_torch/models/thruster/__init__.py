@@ -14,17 +14,13 @@ from hallthrusterpem_tpu_torch.ops.interp import interp1d
 
 def _load_bfield(thr: dict, cfg: SolverConfig) -> np.ndarray:
     """Magnetic-field profile [T] on the solver's cell centres from a device dict,
-    interpolated in float32 as the JAX package does."""
-    z_cells = cfg.cell_centers()
-    mf = (thr or {}).get("magnetic_field", {})
-    file = mf.get("file")
-    if file and Path(str(file)).exists():
-        raw = np.genfromtxt(str(file), delimiter=",", skip_header=1)
-        if raw.ndim == 1 or raw.shape[1] < 2:  # maybe headerless
-            raw = np.genfromtxt(str(file), delimiter=",")
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-        return interp1d(f32(z_cells), f32(raw[:, 0]), f32(raw[:, 1])).numpy()
-    # representative Gaussian profile peaked at the channel exit
-    z_ch = cfg.geometry.channel_length
-    s = np.where(z_cells < z_ch, 0.011, 0.012)
-    return 0.020 * np.exp(-0.5 * ((z_cells - z_ch) / s) ** 2)
+    interpolated in float32 as the JAX package does. Raises if the device names
+    no field file or the file is missing."""
+    file = (thr or {}).get("magnetic_field", {}).get("file")
+    if not file or not Path(str(file)).exists():
+        raise FileNotFoundError(f"magnetic-field file of the device not found: {file!r}")
+    raw = np.genfromtxt(str(file), delimiter=",", skip_header=1)
+    if raw.ndim == 1 or raw.shape[1] < 2:  # maybe headerless
+        raw = np.genfromtxt(str(file), delimiter=",")
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    return interp1d(f32(cfg.cell_centers()), f32(raw[:, 0]), f32(raw[:, 1])).numpy()

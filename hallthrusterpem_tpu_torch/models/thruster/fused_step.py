@@ -47,7 +47,7 @@ _ME = ELECTRON_MASS
 LANES = 256  # widest lane layout (nc <= 254)
 
 # per-sample scalar slots of consts["scalars"]
-P_DV, P_MDOT, P_UN, P_CW, P_TECATH, P_TANDIV, P_RC, P_LDT, P_ICIR = range(9)
+P_DV, P_MDOT, P_UN, P_CW, P_TECATH, P_TANDIV, P_RC, P_LDT = range(8)
 # accumulator slots of sacc; A_ICIR carries the circuit current across launches
 A_THRUST, A_ID, A_ID2, A_IB0, A_MDOT, A_UEXIT, A_FAILED, A_ICIR = range(8)
 N_SLOTS = 128
@@ -499,7 +499,6 @@ def pack_consts(params: dict, base_B: torch.Tensor, cfg: SolverConfig) -> dict:
     scalars[:, P_TANDIV] = params["tan_div"]
     scalars[:, P_RC] = params["circuit_R"]
     scalars[:, P_LDT] = params["circuit_L"] * (1.0 / cfg.dt)
-    scalars[:, P_ICIR] = (_E / cfg.mi) * params["mdot_a"]
     return {"nu_anom": padp(nu_anom).contiguous(), "omega_ce": padp(omega).contiguous(),
             "scalars": scalars}
 

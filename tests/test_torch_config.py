@@ -78,6 +78,13 @@ def test_bfield_matches(num_cells):
     np.testing.assert_allclose(bt, bj, rtol=2 ** -23, atol=0)
 
 
+@pytest.mark.parametrize("field", [{}, {"file": "no_such_bfield.csv"}])
+def test_bfield_without_file_raises(field):
+    """The port never invents a field: a device without its field file is an error."""
+    with pytest.raises(FileNotFoundError):
+        _load_bfield({"magnetic_field": field}, tcfg.SolverConfig(num_cells=60, ncharge=1))
+
+
 def test_make_params_and_ingestion_flux_match():
     rng = np.random.default_rng(1)
     over = {"V_d": rng.uniform(250, 350, 6).astype(np.float32),

@@ -49,8 +49,13 @@ def test_consts_and_initial_state_match():
     cj, ct, pj, base_B, pt, bt = _setup(3, 100, 5)
     ref = ps._pack_consts(pj, jnp.asarray(base_B), cj)
     consts, state, prof, sacc = fs.init_carry(pt, bt, ct)
-    for k in ("nu_anom", "omega_ce", "scalars"):
+    for k in ("nu_anom", "omega_ce"):
         np.testing.assert_allclose(consts[k].numpy(), np.asarray(ref[k]), rtol=2e-6, err_msg=k)
+    # the port packs the slots its kernel reads; the circuit current lives in sacc
+    used = fs.P_LDT + 1
+    np.testing.assert_allclose(consts["scalars"][:, :used].numpy(), np.asarray(ref["scalars"])[:, :used],
+                               rtol=2e-6, err_msg="scalars")
+    assert not consts["scalars"][:, used:].any()
     st = ps._initial_state(pj, cj)
     jstate = [st["rho_n"], st["nE"]] + [a for z in range(3) for a in (st["rho_i"][z], st["mom_i"][z])]
     assert state.shape == (len(jstate), 5, ps.lanes_for(cj))
