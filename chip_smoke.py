@@ -6,7 +6,8 @@
 Phases, each printed with its seconds:
 
 1. device: the card's name, and its name and power limit from ``nvidia-smi``;
-2. build: the K-step kernel (``csrc/kstep.cu``) with nvcc, and ptxas's
+2. build: the K-step kernel (``csrc/kstep.cu``) and the one-step kernel
+   (``csrc/step.cu``), one nvcc each, started together, and ptxas's
    register / shared-memory / spill lines;
 3. kernel against its plain PyTorch version on the card at the main path's
    shapes (fidelity (2,2): 202 cells, 256 lanes, 3 charge states, plume on;
@@ -16,7 +17,19 @@ Phases, each printed with its seconds:
 4. main path: ``CoupledPEM(model_fidelity=(2,2), duration=2e-5)`` (9,138 steps)
    at B = 1024, one warm run and two timed runs, with the launch count checked;
 5. coupled outputs against the plain version: B = 16, 914 steps;
-6. the kernel's time per launch at B = 1024, its plain version's and its bound.
+6. the kernel's time per launch at B = 1024, its plain version's and its bound;
+7. the K-step kernel's variants against the plain version at B = 1024, fidelity
+   (2,2): one launch with the I_d(t) trace lanes, one with two neutral groups;
+8. the one-step kernel against its plain version: one step at B = 1024, the
+   state and all five output arrays;
+9. the wrapper path: ``hallthruster_jl`` with the pem_v0 SPT-100 Thruster
+   component (``configs/pem_v0_SPT-100_thruster.json``) at fidelity (2,2),
+   B = 1024, ``num_save`` 1000 and the cycle average, cut to ``WRAPPER_DURATION``
+   (5e-4 s, the bench length); one warm run and two timed runs, the
+   launch count checked, the raw averages the failure guards judge; then the
+   kernel's time per launch on this config, with the trace lanes and without;
+10. the one-step driver against the K-step driver: B = 1024, 914 steps;
+11. the one-step kernel's time per launch, its plain version's and its bound.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
@@ -32,13 +45,20 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 KERNEL_SOURCE = "hallthrusterpem_tpu_torch/models/thruster/csrc/kstep.cu"
 KERNEL_REPLACES = "hallthrusterpem_tpu/models/thruster/pallas_step.py:677"
+STEP_SOURCE = "hallthrusterpem_tpu_torch/models/thruster/csrc/step.cu"
+STEP_REPLACES = "hallthrusterpem_tpu/models/thruster/pallas_step.py:574"
 STATE_RTOL = 1e-4  # one launch vs 50 plain steps (the CPU tests' step-level bound)
 QOI_RTOL = 1e-2  # time-averaged QoIs (the CPU tests' run-level bound)
+# simulated seconds of the wrapper-path run, the bench length: the component's
+# failure guards judge time averages, and before ~0.2 ms the averaging window
+# lies in the ignition transient, where they reject every row
+WRAPPER_DURATION = 5e-4
 
 
 def log(msg: str) -> None:
@@ -77,10 +97,17 @@ def count_ops(fn) -> int:
     return Counter.n
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, lead: bool = False) -> float:
+    """Milliseconds per call of ``fn`` over ``reps`` calls, between CUDA events.
+    With ``lead`` the card first spins for ~10 ms (2e7 cycles) so that the host
+    enqueues every timed call before the first one starts: the events then
+    bracket back-to-back kernels, not the host's launch pace, which a kernel of a
+    few tens of µs launched through Python checks and ctypes would measure."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if lead:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -101,8 +128,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script checks the port on a GPU")
 
+    import hallthrusterpem_tpu_torch.models.thruster as thruster
+    from hallthrusterpem_tpu_torch.constants import FUNDAMENTAL_CHARGE
+    from hallthrusterpem_tpu_torch.models.cathode import cathode_coupling
     from hallthrusterpem_tpu_torch.models.thruster import _kernels
     from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from hallthrusterpem_tpu_torch.models.thruster.one_step import simulate_batch_step
     from hallthrusterpem_tpu_torch.pem import (
         CoupledPEM,
         _coupled_post,
@@ -122,12 +153,12 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    _kernels.load_library()
-    info = _kernels.build_info
-    log(f"[2 build] kstep.cu -> {info['path']} in {info['seconds']:.2f} s (cached={info['cached']})")
-    for line in info["log"].splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
-            log("    " + line.strip())
+    _kernels.load_libraries()
+    for name, info in _kernels.build_info.items():
+        log(f"[2 build] {name} -> {info['path']} in {info['seconds']:.2f} s (cached={info['cached']})")
+        for line in info["log"].splitlines():
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
+                log("    " + line.strip())
     log(f"[2 build] done ({time.perf_counter() - t0:.2f} s)")
 
     # ---- 3. kernel vs plain version on the card, at the main path's shapes
@@ -228,13 +259,18 @@ def main() -> int:
     physics = fs.Physics(pem.cfg)
     launch = lambda block: block(state, prof, sacc, consts, 0, K, pem.cfg, physics)
     launch(fs.kstep)
-    ms = cuda_ms(lambda: launch(fs.kstep), 20)
+    ms = cuda_ms(lambda: launch(fs.kstep), 20, lead=True)
     plain_ms = cuda_ms(lambda: launch(fs.kstep_plain), 1)
     ops1 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 1, pem.cfg, physics))
     ops2 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 2, pem.cfg, physics))
     ops = (ops1 - (ops2 - ops1)) + K * (ops2 - ops1)
-    n_bytes = 4 * (2 * (state.numel() + prof.numel() + sacc.numel())
-                   + consts["nu_anom"].numel() + consts["omega_ce"].numel() + consts["scalars"].numel())
+    # what the kernel moves: state and profile sums read and written; of each
+    # sample's 128 accumulator slots the 8 it reads and writes (no trace lanes
+    # here), of its 128 scalar slots the 8 it reads (P_DV .. P_LDT); the lane
+    # constants and the rate coefficients read
+    n_bytes = 4 * (2 * (state.numel() + prof.numel()) + 2 * batch * (fs.A_ICIR + 1)
+                   + consts["nu_anom"].numel() + consts["omega_ce"].numel()
+                   + batch * fs.P_ICIR + _kernels.rate_coefficients(pem.cfg).size)
     ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     lanes = batch * fs.lanes_for(pem.cfg)
@@ -243,11 +279,182 @@ def main() -> int:
         f"{ops:.3e} ops and {n_bytes:.3e} bytes per launch -> bound {bound_ms:.4f} ms "
         f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}) ({time.perf_counter() - t0:.2f} s)")
 
+    kstep_ms, kstep_plain_ms = ms, plain_ms
+    kstep_bound = (bound_ms, "operations" if ops_ms >= bytes_ms else "bytes")
+    del params, consts, state, prof, sacc
+
+    # ---- 7. the K-step kernel's variants vs the plain version: B = 1024, fidelity (2,2)
+    t0 = time.perf_counter()
+    variant_err = {}
+    for label, variant in (("trace", {"num_save": 1000}), ("two_group", {"neutral_groups": 2})):
+        vcfg = dataclasses.replace(pem.cfg, average_start_time=0.0, **variant)
+        params, _ = _coupled_pre(default_coupled_inputs(batch, torch.Generator().manual_seed(8),
+                                                        spread=0.08, device=dev), vcfg)
+        consts, state0, prof0, sacc0 = fs.init_carry(params, pem.base_B, vcfg)
+        outs = {}
+        for block in (fs.kstep, fs.kstep_plain):
+            s_, p_, a_ = state0.clone(), prof0.clone(), sacc0.clone()
+            block(s_, p_, a_, consts, 0, K, vcfg, fs.Physics(vcfg))
+            outs[block] = (s_, p_, a_)
+        torch.cuda.synchronize()
+        (ks, kp, ka), (ps, pp, pa) = outs[fs.kstep], outs[fs.kstep_plain]
+        slots = list(range(fs.A_ICIR + 1))
+        if vcfg.num_save:
+            slots += list(range(fs.A_TRACE0, fs.A_TRACE0 + K))
+        pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kp[j], pp[j]) for j in range(kp.shape[0])]
+        pairs += [(ka[:, j], pa[:, j]) for j in slots]
+        assert all(bool(torch.isfinite(k).all()) for k, _ in pairs), f"{label}: kernel output not finite"
+        variant_err[label] = max(scaled_err(k, p) for k, p in pairs)
+        log(f"[7 variants] {label}: 1 launch (K={K}) vs {K} plain steps, B={batch}, {ks.shape[0]} state "
+            f"arrays, {len(pairs)} arrays in all: max scaled error {variant_err[label]:.3e} "
+            f"(tolerance {STATE_RTOL:g})")
+        assert variant_err[label] < STATE_RTOL, (label, variant_err[label])
+        del params, consts, state0, prof0, sacc0, outs, ks, kp, ka, ps, pp, pa, pairs
+    log(f"[7 variants] done ({time.perf_counter() - t0:.2f} s)")
+
+    # ---- 8. the one-step kernel vs its plain version: one step at B = 1024
+    t0 = time.perf_counter()
+    params, _ = _coupled_pre(default_coupled_inputs(batch, torch.Generator().manual_seed(9),
+                                                    spread=0.08, device=dev), pem.cfg)
+    consts, state0, prof0, sacc0 = fs.init_carry(params, pem.base_B, pem.cfg)
+    fs.kstep(state0, prof0, sacc0, consts, 0, K, pem.cfg)  # leave the smooth initial state
+    consts["scalars"][:, fs.P_ICIR] = sacc0[:, fs.A_ICIR]
+    extras0 = torch.zeros((5,) + tuple(state0.shape[1:]), device=dev)
+    ks, kx, ps, px = state0.clone(), extras0.clone(), state0.clone(), extras0.clone()
+    fs.step(ks, kx, consts, pem.cfg)
+    fs.step_plain(ps, px, consts, pem.cfg, physics)
+    torch.cuda.synchronize()
+    pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kx[j], px[j]) for j in range(5)]
+    assert all(bool(torch.isfinite(k).all()) for k, _ in pairs), "step kernel output not finite"
+    step_err = max(scaled_err(k, p) for k, p in pairs)
+    step_abs = max(float((k - p).abs().max()) for k, p in pairs)
+    log(f"[8 step parity] 1 step, B={batch}: max scaled error {step_err:.3e} (tolerance "
+        f"{STATE_RTOL:g}), max absolute error {step_abs:.3e} over {len(pairs)} arrays "
+        f"({time.perf_counter() - t0:.2f} s)")
+    assert step_err < STATE_RTOL
+
+    # ---- 9. the wrapper path: hallthruster_jl, pem_v0 SPT-100 component, B = 1024
+    t0 = time.perf_counter()
+    comp_file = Path(thruster.__file__).parents[2] / "configs" / "pem_v0_SPT-100_thruster.json"
+    comp = json.loads(comp_file.read_text())
+    simulation = dict(comp["simulation"], duration=WRAPPER_DURATION)
+    postprocess = dict(comp["postprocess"], average_start_time=0.5 * WRAPPER_DURATION)
+    tree_kw = dict(thruster=comp["thruster"], config=comp["config"], simulation=simulation,
+                   postprocess=postprocess, model_fidelity=tuple(comp["model_fidelity"]))
+    kw = dict(tree_kw, device=dev)
+
+    def thruster_inputs(seed):
+        x = default_coupled_inputs(batch, torch.Generator().manual_seed(seed), spread=0.08, device=dev)
+        v_cc = cathode_coupling({k: x[k] for k in ("P_b", "V_a", "T_e", "V_vac", "Pstar", "P_T")})["V_cc"]
+        return dict({k: v for k, v in x.items() if k in thruster.PEM_TO_JULIA}, V_cc=v_cc)
+
+    inp = thruster_inputs(42)
+    tree = thruster.format_input_tree(inp, thruster.PEM_TO_JULIA, **tree_kw)
+    wcfg, wparams, wbase_B = thruster._tree_to_solver_inputs(tree, dev)
+    _kernels.reset_counts()
+    out = thruster.hallthruster_jl(inp, **kw)
+    torch.cuda.synchronize()
+    walls = []
+    for trial in range(2):
+        inp = thruster_inputs(100 + trial)
+        t1 = time.perf_counter()
+        out = thruster.hallthruster_jl(inp, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wrapper_launches = dict(_kernels.launch_counts)
+    n_launch_w = math.ceil(wcfg.num_steps / fs.INNER_STEPS)
+    ok = torch.isfinite(out["T"])
+    n_ok = int(ok.sum())
+    trace = out["discharge_current_trace"]
+    wall = min(walls)
+    log(f"[9 wrapper path] hallthruster_jl, fidelity {comp['model_fidelity']}, {wcfg.num_cells} cells, "
+        f"{wcfg.ncharge} charge states, adaptive dt {wcfg.dt:.4e} s, {wcfg.num_steps} steps x B={batch}, "
+        f"num_save {wcfg.num_save}, cycle average: walls {walls[0]:.3f} / {walls[1]:.3f} s, "
+        f"{wall / wcfg.num_steps * 1e6:.2f} us/step, finite {n_ok}/{batch}, "
+        f"mean T {float(out['T'][ok].mean()):.5f} N, mean I_d {float(out['I_d'][ok].mean()):.4f} A, "
+        f"kstep launches {wrapper_launches['kstep']} ({time.perf_counter() - t0:.2f} s)")
+    wrapper_rate = batch * wcfg.duration * 1e3 / wall
+    log(f"[9 wrapper path] {wrapper_rate:.2f} sim-ms/s")
+    raw = out["thruster_output"]["output"]["average"]
+    i_cap = 1.5 * wcfg.ncharge * FUNDAMENTAL_CHARGE * inp["mdot_a"] / wcfg.mi
+    med = lambda v: float(v.nanmedian())
+    log(f"[9 wrapper path] raw averages before the guards (medians over the batch): T "
+        f"{med(raw['thrust']):.5f} N, I_d {med(raw['discharge_current']):.4f} A, I_B0 "
+        f"{med(raw['ion_current']):.4f} A against a cap of {med(i_cap):.4f} A, mass efficiency "
+        f"{med(raw['mass_eff']):.4f}; rows over the I_B0 cap {int((raw['ion_current'] > i_cap).sum())}")
+    assert wrapper_launches["kstep"] == 3 * n_launch_w and wrapper_launches["step"] == 0, wrapper_launches
+    assert n_ok >= batch - 10, n_ok
+    assert trace.shape == (batch, 1000) and bool(torch.isfinite(trace[ok]).all())
+    assert out["u_ion"].shape == (batch, wcfg.nc) and out["model_cost"].shape == (batch,)
+    del out, raw, trace, inp
+    wrapper_ms = {}
+    for label, c in (("trace", wcfg), ("no trace", dataclasses.replace(wcfg, num_save=0))):
+        carry = fs.init_carry(wparams, wbase_B, c)
+        launch_w = lambda: fs.kstep(carry[1], carry[2], carry[3], carry[0], 0, K, c)
+        launch_w()
+        wrapper_ms[label] = cuda_ms(launch_w, 20, lead=True)
+    log(f"[9 wrapper path] kstep on this config from its initial state, B={batch} K={K}: "
+        f"{wrapper_ms['trace']:.3f} ms/launch with the trace lanes, {wrapper_ms['no trace']:.3f} "
+        f"without (main path config: {kstep_ms:.3f})")
+    del carry, wparams
+
+    # ---- 10. the one-step driver vs the K-step driver: B = 1024, 914 steps
+    t0 = time.perf_counter()
+    small = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-6, device=dev)
+    params, _ = _coupled_pre(default_coupled_inputs(batch, torch.Generator().manual_seed(10),
+                                                    spread=0.08, device=dev), small.cfg)
+    _kernels.reset_counts()
+    got = simulate_batch_step(params, small.base_B, small.cfg)
+    torch.cuda.synchronize()
+    step_launches = dict(_kernels.launch_counts)
+    ref = fs.simulate_batch_multi(params, small.base_B, small.cfg)
+    torch.cuda.synchronize()
+    assert step_launches["step"] == small.cfg.num_steps and step_launches["kstep"] == 0, step_launches
+    assert torch.equal(torch.isfinite(got["thrust"]), torch.isfinite(ref["thrust"]))
+    ok = torch.isfinite(ref["thrust"])
+    qoi_err = max(float(((got[k] - ref[k]).abs() / ref[k].abs())[ok].max())
+                  for k in ("thrust", "discharge_current", "ion_current"))
+    log(f"[10 one-step driver] B={batch}, {small.cfg.num_steps} steps, {step_launches['step']} step "
+        f"launches: T/I_d/I_B0 vs the K-step driver max relative error {qoi_err:.3e} (tolerance "
+        f"{QOI_RTOL:g}), finite {int(ok.sum())}/{batch} ({time.perf_counter() - t0:.2f} s)")
+    assert qoi_err < QOI_RTOL and int(ok.sum()) > 0
+    del got, ref
+
+    # ---- 11. the one-step kernel's time, its plain version's and its bound, B = 1024
+    t0 = time.perf_counter()
+    state, extras = state0.clone(), extras0.clone()
+    fs.step(state, extras, consts, pem.cfg)
+    step_ms = cuda_ms(lambda: fs.step(state, extras, consts, pem.cfg), 50, lead=True)
+    step_paced_ms = cuda_ms(lambda: fs.step(state, extras, consts, pem.cfg), 50)
+    step_plain_ms = cuda_ms(lambda: fs.step_plain(state, extras, consts, pem.cfg, physics), 3)
+    step_ops = count_ops(lambda: fs.step_plain(state, extras, consts, pem.cfg, physics))
+    # state read and written, the 5 output arrays written, the lane constants,
+    # of each sample's 128 scalar slots the 9 it reads (P_DV .. P_ICIR), and the
+    # rate coefficients read
+    step_bytes = 4 * (2 * state.numel() + extras.numel() + consts["nu_anom"].numel()
+                      + consts["omega_ce"].numel() + batch * (fs.P_ICIR + 1)
+                      + _kernels.rate_coefficients(pem.cfg).size)
+    s_ops_ms, s_bytes_ms = step_ops / H100_F32_FLOPS * 1e3, step_bytes / H100_BYTES_PER_S * 1e3
+    log(f"[11 step timing] step B={batch}: {step_ms * 1e3:.2f} us/launch on the card "
+        f"({step_paced_ms * 1e3:.2f} us/launch at the host's launch pace), plain {step_plain_ms:.2f} ms; "
+        f"{step_ops:.3e} ops and {step_bytes:.3e} bytes per launch -> bound "
+        f"{max(s_ops_ms, s_bytes_ms) * 1e3:.2f} us (ops {s_ops_ms * 1e3:.2f}, bytes {s_bytes_ms * 1e3:.2f}) "
+        f"({time.perf_counter() - t0:.2f} s)")
+
     kernels = [{
         "name": "kstep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches["kstep"], "max_abs_err": max_abs, "max_scaled_err": max_err,
-        "scaled_err_tolerance": STATE_RTOL, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "launches": launches["kstep"], "launches_wrapper_path": wrapper_launches["kstep"],
+        "max_abs_err": max_abs, "max_scaled_err": max_err,
+        "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
+        "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
+        "bound_ms": kstep_bound[0], "bound_by": kstep_bound[1], "library_ms": None,
+    }, {
+        "name": "step", "route": "cuda", "source": STEP_SOURCE, "replaces": STEP_REPLACES,
+        "launches": step_launches["step"], "max_abs_err": step_abs, "max_scaled_err": step_err,
+        "scaled_err_tolerance": STATE_RTOL, "ms": step_ms, "host_paced_ms": step_paced_ms,
+        "plain_ms": step_plain_ms,
+        "bound_ms": max(s_ops_ms, s_bytes_ms),
+        "bound_by": "operations" if s_ops_ms >= s_bytes_ms else "bytes",
         "library_ms": None,
     }]
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -3,8 +3,8 @@ version of the hand-written CUDA kernel, and the time loop around both.
 
 Counterpart of the JAX package's ``models/thruster/pallas_step.py``
 (``make_physics``, ``sanitize_state``, ``build_multistep_kernel``,
-``simulate_batch_pallas_multi``, ``_pack_consts``, ``_initial_state``,
-``_pallas_finalize``). Each sample's cells sit on lanes 0..NC-1 of a row of
+``build_step_kernel``, ``simulate_batch_pallas_multi``, ``_pack_consts``,
+``_initial_state``, ``_pallas_finalize``). Each sample's cells sit on lanes 0..NC-1 of a row of
 LN = 128 (NC <= 126) or 256 lanes; lanes past NC-1 are padding. Neighbour reads
 are circular rolls over all LN lanes: the mask-free cyclic reduction in the
 electron-energy solve relies on a wrapped read meeting an exact 0 in the
@@ -12,16 +12,22 @@ padding rows, so a clamped or masked read would change the numbers.
 
 Packed tensors (float32, contiguous), shared by the plain version and the kernel:
 
-- ``state`` (2 + 2Z, B, LN): rho_n, nE, then (rho_i, mom_i) for each charge state;
+- ``state`` (2 + 2Z + G - 1, B, LN): rho_n, nE, then (rho_i, mom_i) for each charge
+  state, then, with two neutral groups (G = 2), the fast group's density rho_n2;
 - ``prof`` (Z + 4, B, LN): running sums of u_i per charge state, Te, ne, E, nn;
-- ``sacc`` (B, 128): scalar accumulators (slots ``A_*``) and the circuit current;
-- ``consts``: ``nu_anom`` and ``omega_ce`` (B, LN), ``scalars`` (B, 128) (slots ``P_*``).
+- ``sacc`` (B, 128): scalar accumulators (slots ``A_*``), the circuit current and,
+  when ``cfg.num_save > 0``, the I_d(t) trace lanes ``A_TRACE0 + k``;
+- ``consts``: ``nu_anom`` and ``omega_ce`` (B, LN), ``scalars`` (B, 128) (slots ``P_*``);
+- ``extras`` (5, B, LN), written by the one-step kernel: j_d, qs_t, qs_f in lanes
+  0, 1, 2 of the first array, then Te, ne, E, nn.
 
 Every arithmetic expression keeps the operand order of the JAX model, so that
 float32 rounding matches it as closely as eager PyTorch allows.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -46,11 +52,16 @@ _E = FUNDAMENTAL_CHARGE
 _ME = ELECTRON_MASS
 LANES = 256  # widest lane layout (nc <= 254)
 
-# per-sample scalar slots of consts["scalars"]
-P_DV, P_MDOT, P_UN, P_CW, P_TECATH, P_TANDIV, P_RC, P_LDT = range(8)
+# per-sample scalar slots of consts["scalars"]; P_ICIR is the circuit current of
+# the one-step kernel, rewritten by its driver before every step
+P_DV, P_MDOT, P_UN, P_CW, P_TECATH, P_TANDIV, P_RC, P_LDT, P_ICIR = range(9)
 # accumulator slots of sacc; A_ICIR carries the circuit current across launches
 A_THRUST, A_ID, A_ID2, A_IB0, A_MDOT, A_UEXIT, A_FAILED, A_ICIR = range(8)
+#: first I_d(t) trace lane of sacc (set at every step of a launch when tracing)
+A_TRACE0 = 8
 N_SLOTS = 128
+#: most steps a tracing launch may take: one trace lane per step
+MAX_TRACE_STEPS = N_SLOTS - A_TRACE0
 #: timesteps per kernel launch on the main path (the TPU kernel's default K)
 INNER_STEPS = 50
 
@@ -61,28 +72,35 @@ def lanes_for(cfg: SolverConfig) -> int:
 
 
 def check_supported(cfg: SolverConfig) -> None:
-    """Raise for the configurations this port does not run yet."""
+    """Raise for the configurations the lane-layout solver does not run."""
     if cfg.nc > LANES - 2:
-        raise ValueError(f"num_cells={cfg.num_cells} exceeds the {LANES}-lane layout")
+        raise NotImplementedError(
+            f"num_cells={cfg.num_cells} exceeds the {LANES}-lane kernel layout; grids this "
+            "fine need the lax solver, which the port does not have yet")
     if not 1 <= cfg.ncharge <= 3:
         raise ValueError(f"ncharge={cfg.ncharge}: the solver supports 1 to 3 charge states")
-    if cfg.neutral_groups != 1:
-        raise NotImplementedError(
-            f"neutral_groups={cfg.neutral_groups}: the port runs single-group neutrals only")
-    if cfg.num_save > 0:
-        raise NotImplementedError("num_save > 0: discharge-current traces are not ported yet")
+    if cfg.neutral_groups not in (1, 2):
+        raise ValueError(f"neutral_groups={cfg.neutral_groups}: the solver supports 1 or 2")
 
 
 def n_state_for(cfg: SolverConfig) -> int:
-    return 2 + 2 * cfg.ncharge
+    """rho_n, nE, (rho_i, mom_i) per charge state, then rho_n2 for two groups."""
+    return 2 + 2 * cfg.ncharge + (cfg.neutral_groups - 1)
 
 
 def rate_polys(cfg: SolverConfig):
     """Log-poly rate fits in kernel order: [(coeffs, dcoeffs, z_from, z_to, energy)]
     for each ionization reaction, then (coeffs, dcoeffs, energy) of excitation."""
-    rxn = [(np.asarray(r.log_poly), dlnk_dlnTe_poly(r.log_poly), r.z_from, r.z_to, r.energy_eV)
-           for r in build_reactions(cfg.propellant, cfg.ncharge)]
-    ex, ex_energy = excitation_log_poly(cfg.propellant)
+    return _rate_polys(cfg.propellant, cfg.ncharge)
+
+
+@functools.lru_cache(maxsize=None)
+def _rate_polys(propellant: str, ncharge: int):
+    # the fits take ~0.2 s and depend on nothing else: a config whose dt changes
+    # with every batch (adaptive stepping) must not pay for them on every call
+    rxn = tuple((np.asarray(r.log_poly), dlnk_dlnTe_poly(r.log_poly), r.z_from, r.z_to, r.energy_eV)
+                for r in build_reactions(propellant, ncharge))
+    ex, ex_energy = excitation_log_poly(propellant)
     return rxn, (ex, dlnk_dlnTe_poly(ex), ex_energy)
 
 
@@ -98,8 +116,9 @@ def _roll(x, shift: int):
     return torch.roll(x, shift, dims=1)
 
 
-def sanitize_state(cfg: SolverConfig, rho_n, nE, rho_i, mom_i):
-    """NaN/range scrub of the heavy-species and energy state."""
+def sanitize_state(cfg: SolverConfig, rho_n, nE, rho_i, mom_i, rho_n2=None):
+    """NaN/range scrub of the heavy-species and energy state (``rho_n2``, the
+    fast neutral group, is scrubbed like ``rho_n`` when given)."""
     mi = cfg.mi
     rho_floor = float(1e10 * mi)
     sane = lambda x, lo, hi: torch.clamp(torch.where(torch.isfinite(x), x, lo), lo, hi)
@@ -108,7 +127,34 @@ def sanitize_state(cfg: SolverConfig, rho_n, nE, rho_i, mom_i):
     mom_i = [torch.clamp(torch.where(torch.isfinite(m), m, 0.0), -r * 3e5, r * 3e5)
              for m, r in zip(mom_i, rho_i)]
     nE = sane(nE, 1.0, 1e23)
-    return rho_n, nE, rho_i, mom_i
+    if rho_n2 is not None:
+        rho_n2 = sane(rho_n2, rho_floor, 1e21 * mi)
+    return rho_n, nE, rho_i, mom_i, rho_n2
+
+
+def unpack_scrubbed(cfg: SolverConfig, state):
+    """Views of the packed state, scrubbed: ``(rho_n, nE, rho_i, mom_i, rho_n2, u_i)``
+    with ``u_i`` the ion velocities of the scrubbed state (``rho_n2`` is None for
+    one neutral group)."""
+    Z = cfg.ncharge
+    rho_floor = float(1e10 * cfg.mi)
+    rho_n, nE, rho_i, mom_i, rho_n2 = sanitize_state(
+        cfg, state[0], state[1], [state[2 + 2 * z] for z in range(Z)],
+        [state[3 + 2 * z] for z in range(Z)], state[2 + 2 * Z] if cfg.neutral_groups == 2 else None)
+    u_i = [m / torch.clamp(r, min=rho_floor) for m, r in zip(mom_i, rho_i)]
+    return rho_n, nE, rho_i, mom_i, rho_n2, u_i
+
+
+def store_state(state, rho_n, nE, rho_i, mom_i, rho_n2) -> None:
+    """Write a state back into the packed layout."""
+    Z = len(rho_i)
+    state[0] = rho_n
+    state[1] = nE
+    for z in range(Z):
+        state[2 + 2 * z] = rho_i[z]
+        state[3 + 2 * z] = mom_i[z]
+    if rho_n2 is not None:
+        state[2 + 2 * Z] = rho_n2
 
 
 class Physics:
@@ -121,6 +167,7 @@ class Physics:
         self.NC = cfg.nc
         self.LN = lanes_for(cfg)
         self.Z = cfg.ncharge
+        self.G = cfg.neutral_groups
         self.rxn, self.ex = rate_polys(cfg)
 
     def loop_invariants(self, c_w, tan_div):
@@ -160,11 +207,12 @@ class Physics:
         return pre
 
     def __call__(self, rho_n, nE, rho_i, mom_i, u_i, nu_anom, omega_ce, dV, mdot_in, u_n,
-                 c_w, te_cath, rc, l_dt, i_prev, pre):
+                 c_w, te_cath, rc, l_dt, i_prev, pre, rho_n2=None):
         """Advance one step from a scrubbed state. ``u_i`` are the ion velocities
-        of the state (carried from the previous step). Per-sample scalars are
-        (B, 1). Returns ``(rho_n', nE', rho_i', mom_i'), (j_d, Te, ne, E_z, nn)``."""
-        cfg, NC, Z = self.cfg, self.NC, self.Z
+        of the state (carried from the previous step); ``rho_n2`` is the fast
+        neutral group (two groups only). Per-sample scalars are (B, 1). Returns
+        ``(rho_n', nE', rho_i', mom_i', rho_n2'), (j_d, Te, ne, E_z, nn)``."""
+        cfg, NC, Z, G = self.cfg, self.NC, self.Z, self.G
         dz, dt, mi = cfg.dz, cfg.dt, cfg.mi
         A_ch = cfg.geometry.channel_area
         gap = cfg.geometry.channel_gap
@@ -184,7 +232,22 @@ class Physics:
         ne = torch.clamp(ne, min=cfg.ne_floor)
         inv_ne = 1.0 / ne
         Te = torch.clamp((2.0 / 3.0) * nE * inv_ne, cfg.Te_min, cfg.Te_max)
-        nn = torch.clamp(rho_n * inv_mi, min=1e6)
+        if G == 2:
+            # neutral velocity-space quadrature: group speeds are fixed ratios of
+            # u_n, ionization consumption is split by density share, and the
+            # momentum-source speed is share-weighted
+            nn_g0 = rho_n * inv_mi
+            nn_g1 = rho_n2 * inv_mi
+            nn = torch.clamp(nn_g0 + nn_g1, min=1e6)
+            inv_nn = 1.0 / nn
+            share0 = nn_g0 * inv_nn
+            share1 = nn_g1 * inv_nn
+            u_g0 = cfg.slow_neutral_ratio * u_n
+            u_g1 = cfg.fast_neutral_ratio * u_n
+            u_n_src = share0 * u_g0 + share1 * u_g1
+        else:
+            nn = torch.clamp(rho_n * inv_mi, min=1e6)
+            u_n_src = u_n
 
         # ---- collisions & mobility
         lnTe = torch.log(Te)
@@ -230,7 +293,16 @@ class Physics:
         mom_back = torch.zeros_like(dV)
         for z in range(Z):
             mom_back = mom_back + torch.clamp(mom_i[z][:, 1:2], max=0.0)
-        rho_n_l = (mdot_in / A_ch - mom_back) / u_n
+        if G == 2:
+            # injected flux split over the groups; anode-recycled ion backflow
+            # re-enters the slow group
+            fr = cfg.fast_neutral_fraction
+            rho_n_l = ((1.0 - fr) * (mdot_in / A_ch) - mom_back) / u_g0
+            rho_n2_l = (fr * (mdot_in / A_ch)) / u_g1
+            rho_n2_b = torch.where(lane == 0, rho_n2_l, rho_n2)
+            rho_n2_b = torch.where(lane == NC - 1, _roll(rho_n2, 1), rho_n2_b)
+        else:
+            rho_n_l = (mdot_in / A_ch - mom_back) / u_n
         rho_n_b = torch.where(lane == 0, rho_n_l, rho_n)
         rho_n_b = torch.where(lane == NC - 1, _roll(rho_n, 1), rho_n_b)
         rho_b, mom_b = [], []
@@ -257,7 +329,12 @@ class Physics:
             return s * interior_f
 
         sl_rn = minmod_slope(rho_n_b)
-        Fn = u_n * torch.clamp(rho_n_b + 0.5 * sl_rn, min=rho_floor) * face_f
+        if G == 2:
+            Fn = u_g0 * torch.clamp(rho_n_b + 0.5 * sl_rn, min=rho_floor) * face_f
+            sl_rn2 = minmod_slope(rho_n2_b)
+            Fn2 = u_g1 * torch.clamp(rho_n2_b + 0.5 * sl_rn2, min=rho_floor) * face_f
+        else:
+            Fn = u_n * torch.clamp(rho_n_b + 0.5 * sl_rn, min=rho_floor) * face_f
         Fr, Fm = [], []
         for z in range(Z):
             u_b = mom_b[z] / torch.clamp(rho_b[z], min=rho_floor)
@@ -285,6 +362,7 @@ class Physics:
 
         # ---- sources: log-poly rates, E-force, pressure-area, ion-wall losses
         d_rho_n = torch.zeros_like(rho_n)
+        d_rho_n2 = torch.zeros_like(rho_n) if G == 2 else None
         d_rho = [torch.zeros_like(rho_n) for _ in range(Z)]
         d_mom = [torch.zeros_like(rho_n) for _ in range(Z)]
         inelastic = torch.zeros_like(rho_n)
@@ -293,9 +371,12 @@ class Physics:
         for coeffs, dcoeffs, z_from, z_to, energy in self.rxn:
             k_r = torch.exp(_poly_eval(coeffs, lnTe))
             n_from = nn if z_from == 0 else ni[z_from - 1]
-            u_from = u_n if z_from == 0 else u_i[z_from - 1]
+            u_from = u_n_src if z_from == 0 else u_i[z_from - 1]
             dm = (ne * k_r) * n_from * mi
-            if z_from == 0:
+            if z_from == 0 and G == 2:
+                d_rho_n = d_rho_n - dm * share0
+                d_rho_n2 = d_rho_n2 - dm * share1
+            elif z_from == 0:
                 d_rho_n = d_rho_n - dm
             else:
                 d_rho[z_from - 1] = d_rho[z_from - 1] - dm
@@ -329,6 +410,7 @@ class Physics:
 
         upd = lambda base, flux, src: base + (-dt) * ddz(flux) * interior_f + dt * src * interior_f
         rho_n_new = torch.clamp(upd(rho_n_b, Fn, d_rho_n), min=rho_floor)
+        rho_n2_new = torch.clamp(upd(rho_n2_b, Fn2, d_rho_n2), min=rho_floor) if G == 2 else None
         rho_new = [torch.clamp(upd(rho_b[z], Fr[z], d_rho[z]), min=rho_floor) for z in range(Z)]
         mom_new = [upd(mom_b[z], Fm[z], d_mom[z]) for z in range(Z)]
 
@@ -393,7 +475,7 @@ class Physics:
         Te_new = torch.where(lane >= NC - 1, te_cath, Te_new)
         Te_new = torch.clamp(Te_new, cfg.Te_min, cfg.Te_max)
         nE_new = 1.5 * ne_new * Te_new
-        return (rho_n_new, nE_new, rho_new, mom_new), (j_d, Te, ne, E_z, nn)
+        return (rho_n_new, nE_new, rho_new, mom_new, rho_n2_new), (j_d, Te, ne, E_z, nn)
 
 
 def kstep_plain(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
@@ -404,8 +486,12 @@ def kstep_plain(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
     The state is scrubbed once on entry, with a was-nonfinite flag OR-ed into the
     failed slot; each step's accumulation is gated by
     ``avg_start_step <= i < num_steps`` so that the overshoot steps of the last
-    block do not count."""
+    block do not count. With ``cfg.num_save > 0`` step k also sets trace lane
+    ``A_TRACE0 + k`` of ``sacc`` to its discharge current (K <= 120)."""
     physics = physics or Physics(cfg)
+    trace = cfg.num_save > 0
+    if trace and K > MAX_TRACE_STEPS:
+        raise ValueError(f"kstep: K={K} exceeds the {MAX_TRACE_STEPS} trace lanes")
     Z, NC = cfg.ncharge, cfg.nc
     mi = cfg.mi
     A_ch = cfg.geometry.channel_area
@@ -420,15 +506,12 @@ def kstep_plain(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
 
     bad = (~torch.isfinite(state)).any(dim=2).any(dim=0).float()
     sacc[:, A_FAILED] = torch.maximum(sacc[:, A_FAILED], bad)
-    rho_n, nE, rho_i, mom_i = sanitize_state(
-        cfg, state[0], state[1], [state[2 + 2 * z] for z in range(Z)],
-        [state[3 + 2 * z] for z in range(Z)])
-    u_i = [m / torch.clamp(r, min=rho_floor) for m, r in zip(mom_i, rho_i)]
+    rho_n, nE, rho_i, mom_i, rho_n2, u_i = unpack_scrubbed(cfg, state)
     icir = sacc[:, A_ICIR : A_ICIR + 1]
     for k in range(K):
-        (rho_n, nE, rho_i, mom_i), (j_d, Te, ne, E_z, nn) = physics(
+        (rho_n, nE, rho_i, mom_i, rho_n2), (j_d, Te, ne, E_z, nn) = physics(
             rho_n, nE, rho_i, mom_i, u_i, nu_anom, omega, dV, mdot_in, u_n, c_w, te_cath,
-            rc, l_dt, icir, pre)
+            rc, l_dt, icir, pre, rho_n2)
         u_i = [mom_i[z] / torch.clamp(rho_i[z], min=rho_floor) for z in range(Z)]
         i = i0 + k
         w = float(cfg.avg_start_step <= i < cfg.num_steps)
@@ -455,13 +538,10 @@ def kstep_plain(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
         sacc[:, A_UEXIT] += w * u_i[0][:, exit_ix]
         sacc[:, A_FAILED] = torch.maximum(sacc[:, A_FAILED], (~torch.isfinite(I_d)).float())
         sacc[:, A_ICIR] = I_d
+        if trace:
+            sacc[:, A_TRACE0 + k] = I_d
         icir = I_d[:, None]
-
-    state[0] = rho_n
-    state[1] = nE
-    for z in range(Z):
-        state[2 + 2 * z] = rho_i[z]
-        state[3 + 2 * z] = mom_i[z]
+    store_state(state, rho_n, nE, rho_i, mom_i, rho_n2)
 
 
 def kstep(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
@@ -476,6 +556,41 @@ def kstep(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
         kstep_plain(state, prof, sacc, consts, i0, K, cfg, physics)
     else:
         raise ValueError(f"kstep: unsupported device {state.device}")
+
+
+def step_plain(state, extras, consts, cfg: SolverConfig, physics: Physics | None = None) -> None:
+    """One timestep, in place on ``state``, writing ``extras`` (5, B, LN): the plain
+    PyTorch version of the one-step CUDA kernel (``build_step_kernel``'s
+    counterpart). The state is scrubbed on entry; the circuit current is read
+    from scalar slot ``P_ICIR``."""
+    physics = physics or Physics(cfg)
+    scal = consts["scalars"]
+    col = lambda s: scal[:, s : s + 1]
+    dV, mdot_in, u_n, c_w, te_cath, tan_div, rc, l_dt, i_prev = (col(s) for s in range(9))
+    pre = physics.loop_invariants(c_w, tan_div)
+    rho_n, nE, rho_i, mom_i, rho_n2, u_i = unpack_scrubbed(cfg, state)
+    new_state, (j_d, Te, ne, E_z, nn) = physics(
+        rho_n, nE, rho_i, mom_i, u_i, consts["nu_anom"], consts["omega_ce"], dV, mdot_in, u_n,
+        c_w, te_cath, rc, l_dt, i_prev, pre, rho_n2)
+    store_state(state, *new_state)
+    lane = pre["lane"]
+    qs_t, qs_f = (pre["qs_t"], pre["qs_f"]) if cfg.solve_plume else (1.0, 1.0)
+    extras[0] = torch.where(lane == 1, qs_t, torch.where(lane == 2, qs_f, j_d))
+    for j, val in enumerate((Te, ne, E_z, nn)):
+        extras[1 + j] = val
+
+
+def step(state, extras, consts, cfg: SolverConfig, physics: Physics | None = None) -> None:
+    """One timestep, in place. A CUDA tensor goes to the hand-written one-step
+    kernel (which raises if it cannot launch); a CPU tensor to the plain version."""
+    if state.device.type == "cuda":
+        from hallthrusterpem_tpu_torch.models.thruster import _kernels
+
+        _kernels.step_cuda(state, extras, consts, cfg)
+    elif state.device.type == "cpu":
+        step_plain(state, extras, consts, cfg, physics)
+    else:
+        raise ValueError(f"step: unsupported device {state.device}")
 
 
 def pack_consts(params: dict, base_B: torch.Tensor, cfg: SolverConfig) -> dict:
@@ -504,7 +619,7 @@ def pack_consts(params: dict, base_B: torch.Tensor, cfg: SolverConfig) -> dict:
 
 
 def initial_state(params: dict, cfg: SolverConfig) -> torch.Tensor:
-    """Packed (2 + 2Z, B, LN) initial state, seeded as the JAX solver seeds it."""
+    """Packed (n_state, B, LN) initial state, seeded as the JAX solver seeds it."""
     B = params["V_d"].shape[0]
     dev = params["V_d"].device
     Z, mi, nc = cfg.ncharge, cfg.mi, cfg.nc
@@ -513,7 +628,14 @@ def initial_state(params: dict, cfg: SolverConfig) -> torch.Tensor:
     L = cfg.domain[1] - cfg.domain[0]
     mdot_in = params["mdot_a"] + background_neutral_ingestion_flux(params["P_b"], params["f_n"], cfg)
     u_n = torch.clamp(params["u_n"], min=10.0)
-    rho_inj = (mdot_in / (cfg.geometry.channel_area * u_n))[:, None]
+    if cfg.neutral_groups == 2:
+        # per-group injected densities: group speeds are fixed ratios of u_n,
+        # the injected flux is split by fast_neutral_fraction
+        fr = cfg.fast_neutral_fraction
+        rho_inj = ((1.0 - fr) * mdot_in / (cfg.geometry.channel_area * cfg.slow_neutral_ratio * u_n))[:, None]
+        rho_inj2 = (fr * mdot_in / (cfg.geometry.channel_area * cfg.fast_neutral_ratio * u_n))[:, None]
+    else:
+        rho_inj = (mdot_in / (cfg.geometry.channel_area * u_n))[:, None]
     dV = (params["V_d"] - params["V_cc"])[:, None]
 
     n_prof = 2e17 + 1e18 * torch.exp(-(((z - z_ch) / (0.3 * z_ch)) ** 2))
@@ -533,6 +655,8 @@ def initial_state(params: dict, cfg: SolverConfig) -> torch.Tensor:
         state[3 + 2 * zi, :, :nc] = r * u0
         ne0 = ne0 + (zi + 1) * r / mi
     state[1, :, :nc] = 1.5 * ne0 * Te0
+    if cfg.neutral_groups == 2:
+        state[2 + 2 * Z, :, :nc] = rho_inj2
     return state
 
 
@@ -600,18 +724,42 @@ def simulate_batch_multi(params: dict, base_B: torch.Tensor, cfg: SolverConfig,
     blocks; on the CPU through the plain version. There is no batch padding: the
     kernel runs one thread block per sample.
 
+    ``cfg.num_save > 0`` also returns ``discharge_current_trace`` (B, num_save), the
+    discharge current at steps ``save_idx = arange(num_save) * stride`` with
+    ``stride = max(1, num_steps // num_save)`` (NaN rows for failed samples), and
+    ``trace_times = (save_idx + 1) * dt``. Each launch sets its steps' currents in
+    the trace lanes of ``sacc``, and one strided copy per launch gathers the save
+    points that fall in it (at most 120 steps a launch then).
+
     ``block`` replaces the K-step function (default :func:`kstep`); passing
     :func:`kstep_plain` runs the plain version on any device, for comparisons."""
     if inner_steps <= 0:
         raise ValueError(f"inner_steps={inner_steps}: must be a positive integer")
     block = block or kstep
+    trace = cfg.num_save > 0
+    if trace:
+        inner_steps = min(inner_steps, MAX_TRACE_STEPS)
     params = {k: v.to(torch.float32) for k, v in params.items()}
     base_B = base_B.to(device=params["V_d"].device, dtype=torch.float32)
     consts, state, prof, sacc = init_carry(params, base_B, cfg)
     physics = Physics(cfg) if block is kstep_plain or state.device.type == "cpu" else None
+    stride = max(1, cfg.num_steps // cfg.num_save) if trace else 1
+    traces = torch.zeros((state.shape[1], cfg.num_save), dtype=torch.float32, device=state.device)
     for i0 in range(0, cfg.num_steps, inner_steps):
         block(state, prof, sacc, consts, i0, inner_steps, cfg, physics)
-    return finalize(params, sacc, prof, consts, base_B, cfg)
+        # save points n * stride in [i0, i0 + K): block-local trace lanes n * stride - i0
+        n0 = -(-i0 // stride)
+        n1 = min(cfg.num_save, -(-(i0 + inner_steps) // stride))
+        if n1 > n0:
+            lane0 = A_TRACE0 + n0 * stride - i0
+            traces[:, n0:n1] = sacc[:, lane0 : lane0 + (n1 - n0 - 1) * stride + 1 : stride]
+    out = finalize(params, sacc, prof, consts, base_B, cfg)
+    if trace:
+        failed = sacc[:, A_FAILED] > 0.5
+        save_idx = torch.arange(cfg.num_save, device=state.device) * stride
+        out["discharge_current_trace"] = torch.where(failed[:, None], torch.nan, traces)
+        out["trace_times"] = torch.broadcast_to((save_idx.float() + 1.0) * cfg.dt, traces.shape)
+    return out
 
 
 def from_jax_numpy(params: dict, base_B: np.ndarray, device) -> tuple[dict, torch.Tensor]:

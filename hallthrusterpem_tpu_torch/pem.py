@@ -19,18 +19,9 @@ from hallthrusterpem_tpu_torch.models.thruster import _load_bfield
 from hallthrusterpem_tpu_torch.models.thruster.config import Geometry, SolverConfig, make_params
 from hallthrusterpem_tpu_torch.models.thruster.fused_step import simulate_batch_multi
 from hallthrusterpem_tpu_torch.models.thruster.mapping import default_model_fidelity
-from hallthrusterpem_tpu_torch.utils import load_thruster
+from hallthrusterpem_tpu_torch.utils import load_thruster, resolve_device
 
 __all__ = ["CoupledPEM", "default_coupled_inputs"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the first CUDA device; there is no silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device found: pass device='cpu' to run the plain PyTorch path")
-        return torch.device("cuda")
-    return torch.device(device)
 
 #: nominal pem_v0 SPT-100 input set (the JAX package's ``pem._NOMINALS``)
 _NOMINALS = {

@@ -1,12 +1,24 @@
 """Device-configuration loading from the port's packaged JSON device files
-(the JSON twin of the JAX package's YAML ``load_thruster``)."""
+(the JSON twin of the JAX package's YAML ``load_thruster``), and the device
+policy of the port's entry points."""
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
 
-__all__ = ["load_thruster", "device_dir"]
+import torch
+
+__all__ = ["load_thruster", "device_dir", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the first CUDA device; there is no silent CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found: pass device='cpu' to run the plain PyTorch path")
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 def device_dir() -> Path:

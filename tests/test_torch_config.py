@@ -78,11 +78,24 @@ def test_bfield_matches(num_cells):
     np.testing.assert_allclose(bt, bj, rtol=2 ** -23, atol=0)
 
 
-@pytest.mark.parametrize("field", [{}, {"file": "no_such_bfield.csv"}])
+@pytest.mark.parametrize("field", [{"file": "no_such_bfield.csv"}, {"file": "missing_dir/bfield.csv"}])
 def test_bfield_without_file_raises(field):
-    """The port never invents a field: a device without its field file is an error."""
+    """The port never invents a field for a device whose named field file is missing."""
     with pytest.raises(FileNotFoundError):
         _load_bfield({"magnetic_field": field}, tcfg.SolverConfig(num_cells=60, ncharge=1))
+
+
+@pytest.mark.parametrize("thr", [{}, {"magnetic_field": {}}, {"geometry": {"channel_length": 0.03}}])
+@pytest.mark.parametrize("num_cells", [60, 200])
+def test_bfield_default_profile_matches(thr, num_cells):
+    """A device that names no field file gets the JAX package's default profile."""
+    geom = thr.get("geometry", {})
+    kw = dict(num_cells=num_cells, ncharge=1)
+    cj = jcfg.SolverConfig(**kw, geometry=jcfg.Geometry(**geom))
+    ct = tcfg.SolverConfig(**kw, geometry=tcfg.Geometry(**geom))
+    bt = _load_bfield(thr, ct)
+    assert bt.dtype == np.float32 and bt.shape == (num_cells + 2,)
+    np.testing.assert_array_equal(bt, np.asarray(jax_load_bfield(thr, cj), np.float32))
 
 
 def test_make_params_and_ingestion_flux_match():

@@ -1,4 +1,5 @@
-"""The K-step CUDA kernel on the card against its plain PyTorch version.
+"""The K-step and one-step CUDA kernels on the card against their plain PyTorch
+versions.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Each test decides inside itself whether a card is present and skips otherwise,
@@ -13,6 +14,7 @@ import torch
 
 from hallthrusterpem_tpu_torch.models.thruster import _kernels
 from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+from hallthrusterpem_tpu_torch.models.thruster.one_step import simulate_batch_step
 from hallthrusterpem_tpu_torch.pem import CoupledPEM, _coupled_post, _coupled_pre, default_coupled_inputs
 
 pytestmark = pytest.mark.gpu
@@ -27,14 +29,22 @@ def _scaled(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("fidelity", [(0, 0), (2, 2)])
-def test_kernel_matches_plain_on_card(fidelity):
-    _need_card()
+def _carry_on_card(fidelity, **variant):
     pem = CoupledPEM(model_fidelity=fidelity, duration=2e-5, device="cuda")
-    cfg = dataclasses.replace(pem.cfg, average_start_time=0.0)
+    cfg = dataclasses.replace(pem.cfg, average_start_time=0.0, **variant)
     x = default_coupled_inputs(8, torch.Generator().manual_seed(1), spread=0.08, device="cuda")
     params, _ = _coupled_pre(x, cfg)
-    consts, state, prof, sacc = fs.init_carry(params, pem.base_B, cfg)
+    return pem, cfg, params, fs.init_carry(params, pem.base_B, cfg)
+
+
+@pytest.mark.parametrize("fidelity,variant", [
+    pytest.param((0, 0), {}, id="fidelity0"), pytest.param((2, 2), {}, id="fidelity1"),
+    pytest.param((2, 2), {"num_save": 1000}, id="trace"),
+    pytest.param((2, 2), {"neutral_groups": 2}, id="two_group"),
+])
+def test_kernel_matches_plain_on_card(fidelity, variant):
+    _need_card()
+    _, cfg, _, (consts, state, prof, sacc) = _carry_on_card(fidelity, **variant)
     got = [t.clone() for t in (state, prof, sacc)]
     ref = [t.clone() for t in (state, prof, sacc)]
     before = _kernels.launch_counts["kstep"]
@@ -46,8 +56,40 @@ def test_kernel_matches_plain_on_card(fidelity):
         assert _scaled(got[0][j], ref[0][j]) < 1e-4
     for j in range(prof.shape[0]):
         assert _scaled(got[1][j], ref[1][j]) < 1e-4
-    for j in range(8):
+    slots = list(range(8)) + (list(range(fs.A_TRACE0, fs.A_TRACE0 + 50)) if cfg.num_save else [])
+    for j in slots:
         assert _scaled(got[2][:, j], ref[2][:, j]) < 1e-4
+
+
+@pytest.mark.parametrize("fidelity,groups", [((0, 0), 1), ((2, 2), 1), ((2, 2), 2)])
+def test_step_kernel_matches_plain_on_card(fidelity, groups):
+    _need_card()
+    _, cfg, _, (consts, state, _, sacc) = _carry_on_card(fidelity, neutral_groups=groups)
+    consts["scalars"][:, fs.P_ICIR] = sacc[:, fs.A_ICIR]
+    extras = torch.zeros((5,) + state.shape[1:], device="cuda")
+    got, got_ex, ref, ref_ex = state.clone(), extras.clone(), state.clone(), extras.clone()
+    before = _kernels.launch_counts["step"]
+    fs.step(got, got_ex, consts, cfg)
+    fs.step_plain(ref, ref_ex, consts, cfg)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["step"] == before + 1
+    for j in range(state.shape[0]):
+        assert _scaled(got[j], ref[j]) < 1e-4
+    for j in range(5):
+        assert _scaled(got_ex[j], ref_ex[j]) < 1e-4
+
+
+def test_one_step_driver_kernel_vs_plain_on_card():
+    _need_card()
+    pem, cfg, params, _ = _carry_on_card((2, 2))
+    cfg = dataclasses.replace(cfg, duration=200 * cfg.dt, average_start_time=100 * cfg.dt)
+    before = _kernels.launch_counts["step"]
+    got = simulate_batch_step(params, pem.base_B, cfg)
+    ref = simulate_batch_step(params, pem.base_B, cfg, block=fs.step_plain)
+    assert _kernels.launch_counts["step"] == before + cfg.num_steps
+    assert torch.equal(torch.isfinite(got["thrust"]), torch.isfinite(ref["thrust"]))
+    for k in ("thrust", "discharge_current", "ion_current"):
+        assert float(((got[k] - ref[k]).abs() / ref[k].abs()).max()) < 1e-2, k
 
 
 def test_coupled_pem_kernel_vs_plain_on_card():
