@@ -8,7 +8,9 @@ Phases, each printed with its seconds:
 1. device: the card's name, and its name and power limit from ``nvidia-smi``;
 2. build: the K-step kernel (``csrc/kstep.cu``) and the one-step kernel
    (``csrc/step.cu``), one nvcc each, started together, and ptxas's
-   register / shared-memory / spill lines;
+   register / shared-memory / spill lines; the K-step kernel's blocks per SM
+   at the main path's config, and from its SASS (``cuobjdump``) the block
+   barriers and instructions of one step and the instruction count by opcode;
 3. kernel against its plain PyTorch version on the card at the main path's
    shapes (fidelity (2,2): 202 cells, 256 lanes, 3 charge states, plume on;
    B = 1024): one K = 50 launch against 50 plain steps from the same state, every
@@ -17,7 +19,9 @@ Phases, each printed with its seconds:
 4. main path: ``CoupledPEM(model_fidelity=(2,2), duration=2e-5)`` (9,138 steps)
    at B = 1024, one warm run and two timed runs, with the launch count checked;
 5. coupled outputs against the plain version: B = 16, 914 steps;
-6. the kernel's time per launch at B = 1024, its plain version's and its bound;
+6. the kernel's time per launch at B = 1024, its plain version's and its bound,
+   beside its block barriers per step; the SM clock under load, and the time a
+   step would take at that clock if every scheduler issued every cycle;
 7. the K-step kernel's variants against the plain version at B = 1024, fidelity
    (2,2): one launch with the I_d(t) trace lanes, one with two neutral groups;
 8. the one-step kernel against its plain version: one step at B = 1024, the
@@ -39,9 +43,12 @@ a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -95,6 +102,66 @@ def count_ops(fn) -> int:
     with Counter():
         fn()
     return Counter.n
+
+
+def kernel_sass(lib_path: str, kernel: str) -> list:
+    """SASS of the kernel whose mangled name contains ``kernel``, from
+    ``cuobjdump -sass`` of the built library: one (address, opcode with its
+    modifiers, branch target or None) triple per instruction."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel in fn.split("\n", 1)[0]:
+            out = []
+            for addr, op, rest in re.findall(
+                    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", fn):
+                tgt = re.search(r"0x([0-9a-f]+)\s*$", rest) if op.split(".")[0] == "BRA" else None
+                out.append((int(addr, 16), op, int(tgt.group(1), 16) if tgt else None))
+            return out
+    raise RuntimeError(f"no kernel {kernel} in the SASS of {lib_path}")
+
+
+def step_loop_counts(sass: list, n_levels: int) -> tuple:
+    """Block barriers and instructions one step of the K-step kernel issues per
+    warp, read from its SASS. A loop is a backward branch; the step loop is the
+    outermost loop that holds a barrier, and the one loop it may hold is the
+    PCR's (``#pragma unroll 1`` in physics.cuh), which runs ``n_levels`` times a
+    step. Instructions are static: both sides of a branch count, and the
+    subroutines it calls (the slow paths of IEEE division) do not."""
+    heads: dict = {}
+    for addr, _, tgt in sass:
+        if tgt is not None and tgt < addr:
+            heads[tgt] = max(addr, heads.get(tgt, addr))
+    loops = sorted(heads.items(), key=lambda lo: lo[0] - lo[1])  # outermost first
+    inside = lambda lo: [x for x in sass if lo[0] <= x[0] <= lo[1]]
+    bars = lambda xs: sum(op.startswith("BAR.") for _, op, _ in xs)
+    step = next(lo for lo in loops if bars(inside(lo)))
+    inner = [lo for lo in loops if lo != step and step[0] <= lo[0] <= step[1]]
+    if len(inner) != 1 or not bars(inside(inner[0])):
+        raise RuntimeError(f"step loop {step} holds loops {inner}, not the PCR's alone")
+    body, pcr = inside(step), inside(inner[0])
+    return (bars(body) + (n_levels - 1) * bars(pcr), len(body) + (n_levels - 1) * len(pcr))
+
+
+def sm_clock_under_load(launch, n_launch: int) -> list:
+    """SM clocks (MHz) that ``nvidia-smi`` reads while the card runs ``n_launch``
+    back-to-back launches; only reads that ended before the last launch did."""
+    import torch
+
+    done = torch.cuda.Event()
+    for _ in range(n_launch):
+        launch()
+    done.record()
+    reads = []
+    for _ in range(5):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True, timeout=60).stdout
+        if done.query():
+            break
+        reads.append(float(out.split()[0]))
+    torch.cuda.synchronize()
+    return reads
 
 
 def cuda_ms(fn, reps: int, lead: bool = False) -> float:
@@ -153,19 +220,30 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
+    dev = torch.device("cuda")
     _kernels.load_libraries()
     for name, info in _kernels.build_info.items():
         log(f"[2 build] {name} -> {info['path']} in {info['seconds']:.2f} s (cached={info['cached']})")
         for line in info["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 log("    " + line.strip())
-    log(f"[2 build] done ({time.perf_counter() - t0:.2f} s)")
+    pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=args.duration, device=dev)
+    blocks_per_sm = _kernels.kstep_blocks_per_sm(pem.cfg)
+    kname = f"kstep<{pem.cfg.ncharge},{pem.cfg.neutral_groups}>"
+    sass = kernel_sass(_kernels.build_info["kstep"]["path"],
+                       f"kstep_kernelILi{pem.cfg.ncharge}ELi{pem.cfg.neutral_groups}E")
+    n_levels = _kernels.kernel_params(pem.cfg).n_levels
+    barriers, step_insns = step_loop_counts(sass, n_levels)
+    opcodes = collections.Counter(op.split(".")[0] for _, op, _ in sass)
+    log(f"[2 build] {kname} at {fs.lanes_for(pem.cfg)} threads: {blocks_per_sm} blocks per SM; "
+        f"in its SASS, per step ({n_levels} PCR levels): {barriers} block barriers, {step_insns} "
+        f"instructions a warp issues (static, both sides of each branch); {len(sass)} instructions "
+        f"in all: " + ", ".join(f"{k} {n}" for k, n in opcodes.most_common(12))
+        + f" ({time.perf_counter() - t0:.2f} s)")
 
     # ---- 3. kernel vs plain version on the card, at the main path's shapes
     t0 = time.perf_counter()
-    dev = torch.device("cuda")
     batch = 1024
-    pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=args.duration, device=dev)
     cfg = dataclasses.replace(pem.cfg, average_start_time=0.0)  # accumulate from step 0
     gen = torch.Generator().manual_seed(7)
     params, _ = _coupled_pre(default_coupled_inputs(batch, gen, spread=0.08, device=dev), cfg)
@@ -274,10 +352,22 @@ def main() -> int:
     ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     lanes = batch * fs.lanes_for(pem.cfg)
-    log(f"[6 timing] kstep B={batch} K={K}: {ms:.3f} ms/launch ({ms / K * 1e3:.2f} us/step), "
-        f"plain {plain_ms:.1f} ms; {(ops2 - ops1) / lanes:.0f} ops per lane-step, "
-        f"{ops:.3e} ops and {n_bytes:.3e} bytes per launch -> bound {bound_ms:.4f} ms "
-        f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}) ({time.perf_counter() - t0:.2f} s)")
+    log(f"[6 timing] kstep B={batch} K={K}: {ms:.3f} ms/launch ({ms / K * 1e3:.2f} us/step, "
+        f"{ms / bound_ms:.2f}x the bound), plain {plain_ms:.1f} ms; {(ops2 - ops1) / lanes:.0f} ops per "
+        f"lane-step, {ops:.3e} ops and {n_bytes:.3e} bytes per launch -> bound {bound_ms:.4f} ms "
+        f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}); {barriers} block barriers per step, "
+        f"{blocks_per_sm} blocks per SM")
+    # the issue-rate estimate: the busiest SM's warps each issue the step's
+    # static instructions, over its 4 schedulers at one instruction a clock
+    clocks = sm_clock_under_load(lambda: launch(fs.kstep), 2000)
+    sm_mhz = sorted(clocks)[len(clocks) // 2] if clocks else None
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    warps_per_sm = math.ceil(batch / n_sm) * fs.lanes_for(pem.cfg) // 32
+    issue_us = warps_per_sm * step_insns / 4 / sm_mhz if sm_mhz else None
+    log(f"[6 timing] SM clock under load {clocks} MHz; {n_sm} SMs, {warps_per_sm} warps on the "
+        f"busiest, {step_insns} static instructions a warp-step -> issue-limited estimate "
+        + (f"{issue_us:.2f} us/step" if issue_us else "not measured (no read while busy)")
+        + f" against {ms / K * 1e3:.2f} measured ({time.perf_counter() - t0:.2f} s)")
 
     kstep_ms, kstep_plain_ms = ms, plain_ms
     kstep_bound = (bound_ms, "operations" if ops_ms >= bytes_ms else "bytes")
@@ -448,6 +538,8 @@ def main() -> int:
         "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
         "bound_ms": kstep_bound[0], "bound_by": kstep_bound[1], "library_ms": None,
+        "blocks_per_sm": blocks_per_sm, "barriers_per_step": barriers, "sass_instructions": len(sass),
+        "sass_instructions_per_step": step_insns, "sm_clock_mhz": sm_mhz, "issue_us_per_step": issue_us,
     }, {
         "name": "step", "route": "cuda", "source": STEP_SOURCE, "replaces": STEP_REPLACES,
         "launches": step_launches["step"], "max_abs_err": step_abs, "max_scaled_err": step_err,

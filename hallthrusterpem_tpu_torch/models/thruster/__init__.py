@@ -331,12 +331,16 @@ def hallthruster_jl(
         z_peak = torch.gather(z, -1, torch.argmax(ui, dim=-1, keepdim=True))[..., 0]
         bad = bad | (z_peak < shock_threshold)
     bad = ~torch.isfinite(thrust) | bad
-    for key, val in outputs.items():
-        mask = bad.reshape(bad.shape + (1,) * (val.ndim - bad.ndim))
-        outputs[key] = torch.where(mask, torch.nan, val)
+    if bool(bad.any()):
+        # as in the JAX package: once any row is masked, every output is float64
+        for key, val in outputs.items():
+            val = val.to(torch.float64)
+            mask = bad.reshape(bad.shape + (1,) * (val.ndim - bad.ndim))
+            outputs[key] = torch.where(mask, torch.nan, val)
 
     batch_n = max(int(np.prod(tuple(thrust.shape))), 1)
-    outputs["model_cost"] = torch.full(tuple(thrust.shape), (t2 - t1) / batch_n, device=device)
+    outputs["model_cost"] = torch.full(tuple(thrust.shape), (t2 - t1) / batch_n, dtype=torch.float64,
+                                       device=device)
     if output_path is not None:
         out_file = Path(tree["postprocess"]["output_file"])
         outputs["output_path"] = out_file.relative_to(Path(output_path).resolve()).as_posix()

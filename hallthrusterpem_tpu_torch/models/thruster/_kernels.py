@@ -209,9 +209,21 @@ def load_libraries() -> dict:
                 launch.restype = ctypes.c_int
                 n_ptr = 8 if name == "kstep" else 7
                 launch.argtypes = [ctypes.POINTER(KParams)] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * n_ptr
+                if name == "kstep":
+                    lib.kstep_occupancy.restype = ctypes.c_int
+                    lib.kstep_occupancy.argtypes = [ctypes.c_int] * 3
                 loaded[name] = lib
             _libs.update(loaded)
     return _libs
+
+
+def kstep_blocks_per_sm(cfg: SolverConfig) -> int:
+    """Blocks of the K-step kernel that one SM of the current card holds at once
+    for ``cfg`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n = load_libraries()["kstep"].kstep_occupancy(cfg.ncharge, cfg.neutral_groups, lanes_for(cfg))
+    if n < 0:
+        raise RuntimeError(f"kstep occupancy query failed with CUDA error {-n}")
+    return n
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:

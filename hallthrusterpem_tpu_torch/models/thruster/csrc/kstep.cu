@@ -10,19 +10,43 @@
 // padding lane; blockDim = LN = 128 or 256). Each thread keeps its lane's state,
 // velocities and profile sums in registers across the K steps and writes them
 // back once per launch, so device memory is touched once per launch and not once
-// per step. Per-sample values read at one lane (lane NC-2 for the exit-plane
-// accumulators) are broadcast through shared memory. Per-sample accumulators are
-// kept identically by every thread and written back by thread 0. With the trace
-// on, thread 0 also sets accumulator slot 8 + k to step k's discharge current
-// (the I_d(t) trace lanes; K <= 120).
+// per step. The per-sample accumulators and the exit-plane scales live in
+// shared memory, kept by thread 0 alone, which reads the new exit-plane state
+// that physics_step leaves in `s.bx`; the other threads hold no register for
+// them. With the trace on, thread 0 also sets accumulator slot 8 + k to step
+// k's discharge current (the I_d(t) trace lanes; K <= 120).
 //
-// What bounds it on an H100: operations, not bytes. A step does about 1.05e3
-// float32 operations per lane (chip_smoke.py counts them) against 128 bytes of
-// state, profile sums and constants per lane per launch, so at K = 50 the
-// operation bound is ~20x the byte bound. The design therefore keeps all state
-// in registers, spends no memory traffic per step, and leaves the arithmetic as
-// written (precise expf/logf/sqrtf, true divides, no FMA contraction, which is
-// set by the build flags) so that the result matches the plain version.
+// What bounds it on an H100. The operation bound of chip_smoke.py (0.206 ms
+// at fidelity (2,2), B = 1024, K = 50) counts an operation as half a fused
+// multiply-add at 67 TFLOP/s; the kernel takes 5.9x that. The working
+// hypothesis, not measured (no profiler has counted its issued instructions):
+// the issue rate of its instructions. The plain version's ~1.05e3 float32
+// operations per lane-step become 2,629 SASS instructions a warp issues per
+// step of kstep<3,1> in chip_smoke.py's static count of the step loop (both
+// sides of each branch; precise divisions, expf/logf, NaN-propagating
+// min/max, shared loads of the rate coefficients). At the 1,980 MHz SM clock
+// read under load, the 64 warps of the busiest SM would issue them in 21.2 us
+// a step against the 24.4 us measured: 87% of the schedulers' cycles, if
+// every counted instruction ran. Per lane and launch it moves only 128 bytes. The design:
+// - few block barriers: 15 a step at fidelity (2,2), read from the SASS by
+//   chip_smoke.py (physics.cuh says where they are), 41 before;
+// - four blocks of 256 threads per SM (kMinBlocksPerSM in physics.cuh): 64
+//   registers, at the price of 84 B of spill stores in kstep<3,1>; 1024
+//   samples fill two waves of 528 blocks on 132 SMs;
+// - explicit fmaf in the Horner steps of the rate fits, the HLLE fluxes and the
+//   PCR update; the build keeps -fmad=false, so nothing else is contracted.
+// Measured at fidelity (2,2), B = 1024, K = 50 (chip_smoke.py phases 2 and 6,
+// NVIDIA H100 80GB HBM3, 700 W power limit), each step on top of the last:
+//   the first design (41 barriers, 127 registers, 2 blocks/SM)   1.625 ms
+//   (a) Ohm's-law sums by warp shuffle (33 barriers)              1.630 ms
+//   (b) double-buffered PCR rows (25 barriers)                    1.564 ms
+//   (c) disjoint staging rows, exit plane folded in (15 barriers)  1.524 ms
+//   (d) __launch_bounds__(256, 3): 80 registers, 3 blocks/SM      1.367 ms
+//       __launch_bounds__(256, 4): 64 registers, 4 blocks/SM      1.321 ms
+//   accumulators kept by thread 0 in shared memory               1.276 ms
+//   (e) explicit fmaf (scaled error vs plain 1.718e-6)           1.214 ms
+//   PCR loop kept rolled, warp-partial sum unrolled               1.213 ms
+// The barrier cuts gave 6%; occupancy and fewer instructions gave the rest.
 //
 // The source includes no PyTorch header; it is built with nvcc into a shared
 // library with a plain C interface and bound with ctypes (../_kernels.py).
@@ -30,7 +54,7 @@
 #include "physics.cuh"
 
 template <int Z, int G>
-__global__ void __launch_bounds__(kMaxLanes)
+__global__ void __launch_bounds__(kMaxLanes, kMinBlocksPerSM)
 kstep_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ prof,
              float* __restrict__ sacc, const float* __restrict__ nu_anom_g,
              const float* __restrict__ omega_g, const float* __restrict__ scal_g,
@@ -42,6 +66,8 @@ kstep_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ pr
   const size_t off = (size_t)b * LN + l;
 
   __shared__ Shared s;
+  __shared__ float acc[A_FAILED + 1];  // per-sample accumulators, kept by thread 0
+  __shared__ float qs[2];              // exit-plane scales qs_t, qs_f, read by thread 0
   const Invariants v = load_invariants<Z>(p, s, B, l, LN, nu_anom_g, omega_g, scal_g, coef_g);
 
   // ---- load, was-nonfinite flag, scrub (once per launch)
@@ -53,12 +79,15 @@ kstep_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ pr
   const bool any_bad = __syncthreads_or(bad) != 0;
 
   float* sa = sacc + (size_t)b * kSlots;
-  float acc_thrust = sa[A_THRUST], acc_id = sa[A_ID], acc_id2 = sa[A_ID2], acc_ib0 = sa[A_IB0];
-  float acc_mdot = sa[A_MDOT], acc_uexit = sa[A_UEXIT];
-  float failed = mx(sa[A_FAILED], any_bad ? 1.0f : 0.0f);
+  if (l == 0) {
+#pragma unroll
+    for (int j = A_THRUST; j < A_FAILED; ++j) acc[j] = sa[j];
+    acc[A_FAILED] = mx(sa[A_FAILED], any_bad ? 1.0f : 0.0f);
+    qs[0] = v.qs_t;
+    qs[1] = v.qs_f;
+  }
   float icir = sa[A_ICIR];
-  const int ex = p.NC - 2;  // exit-plane lane of the accumulators
-  float* bx = s.bx;
+  const float* bx = s.bx;  // exit-plane state (lane NC-2), set by physics_step
 
   for (int k = 0; k < p.K; ++k) {
     const StepOut o = physics_step<Z, G>(p, v, s, st, icir, l, LN);
@@ -66,43 +95,37 @@ kstep_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ pr
     // ---- gated accumulation (overshoot steps of the last launch do not count)
     const int i = p.i0 + k;
     const float w = (i >= p.avg_start && i < p.num_steps) ? 1.0f : 0.0f;
-    if (l == ex) {
 #pragma unroll
-      for (int z = 0; z < Z; ++z) {
-        bx[z] = st.ri[z];
-        bx[3 + z] = st.mo[z];
-        bx[6 + z] = st.ui[z];
-      }
-    }
-    __syncthreads();
-    float thrust = 0.0f, I_B0 = 0.0f, mdot_ion = 0.0f;
-#pragma unroll
-    for (int z = 0; z < Z; ++z) {
-      const float r_ex = bx[z], m_ex = bx[3 + z], u_ex = bx[6 + z];
-      thrust = thrust + p.A_ch * (m_ex * u_ex + r_ex * p.a_i2);
-      I_B0 = I_B0 + p.iz_c[z] * r_ex * u_ex;
-      mdot_ion = mdot_ion + p.A_ch * m_ex;
-      pf[z] += w * st.ui[z];
-    }
-    if (p.solve_plume) {
-      thrust = thrust * v.qs_t;
-      I_B0 = I_B0 * v.qs_f;
-      mdot_ion = mdot_ion * v.qs_f;
-    }
-    const float I_d = o.j_d * p.A_ch;
+    for (int z = 0; z < Z; ++z) pf[z] += w * st.ui[z];
     pf[Z] += w * o.Te;
     pf[Z + 1] += w * o.ne;
     pf[Z + 2] += w * o.E_z;
     pf[Z + 3] += w * o.nn;
-    acc_thrust += w * thrust;
-    acc_id += w * I_d;
-    acc_id2 += w * I_d * I_d;
-    acc_ib0 += w * I_B0;
-    acc_mdot += w * mdot_ion;
-    acc_uexit += w * bx[6];
-    failed = mx(failed, isfinite(I_d) ? 0.0f : 1.0f);
+    const float I_d = o.j_d * p.A_ch;
     icir = I_d;
-    if (p.trace && l == 0) sa[kTrace0 + k] = I_d;
+    if (l == 0) {
+      float thrust = 0.0f, I_B0 = 0.0f, mdot_ion = 0.0f;
+#pragma unroll
+      for (int z = 0; z < Z; ++z) {
+        const float r_ex = bx[z], m_ex = bx[3 + z], u_ex = bx[6 + z];
+        thrust = thrust + p.A_ch * (m_ex * u_ex + r_ex * p.a_i2);
+        I_B0 = I_B0 + p.iz_c[z] * r_ex * u_ex;
+        mdot_ion = mdot_ion + p.A_ch * m_ex;
+      }
+      if (p.solve_plume) {
+        thrust = thrust * qs[0];
+        I_B0 = I_B0 * qs[1];
+        mdot_ion = mdot_ion * qs[1];
+      }
+      acc[A_THRUST] += w * thrust;
+      acc[A_ID] += w * I_d;
+      acc[A_ID2] += w * I_d * I_d;
+      acc[A_IB0] += w * I_B0;
+      acc[A_MDOT] += w * mdot_ion;
+      acc[A_UEXIT] += w * bx[6];
+      acc[A_FAILED] = mx(acc[A_FAILED], isfinite(I_d) ? 0.0f : 1.0f);
+      if (p.trace) sa[kTrace0 + k] = I_d;
+    }
   }
 
   // ---- write back once per launch
@@ -110,13 +133,8 @@ kstep_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ pr
 #pragma unroll
   for (int j = 0; j < Z + 4; ++j) prof[j * plane + off] = pf[j];
   if (l == 0) {
-    sa[A_THRUST] = acc_thrust;
-    sa[A_ID] = acc_id;
-    sa[A_ID2] = acc_id2;
-    sa[A_IB0] = acc_ib0;
-    sa[A_MDOT] = acc_mdot;
-    sa[A_UEXIT] = acc_uexit;
-    sa[A_FAILED] = failed;
+#pragma unroll
+    for (int j = A_THRUST; j <= A_FAILED; ++j) sa[j] = acc[j];
     sa[A_ICIR] = icir;
   }
 }
@@ -130,7 +148,23 @@ static void launch(const KParams& p, int B, int LN, cudaStream_t s, void* state,
                                       (const float*)scalars, (const float*)coef);
 }
 
+template <int Z, int G>
+static int occupancy(int LN) {
+  int n = 0;
+  const auto err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kstep_kernel<Z, G>, LN, 0);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 extern "C" int kstep_params_size() { return (int)sizeof(KParams); }
+
+// Blocks of LN threads that one SM holds at once for Z charge states and G
+// neutral groups; a negative cudaError_t if the query fails.
+extern "C" int kstep_occupancy(int Z, int G, int LN) {
+  static decltype(&occupancy<1, 1>) const table[2][3] = {
+      {occupancy<1, 1>, occupancy<2, 1>, occupancy<3, 1>}, {occupancy<1, 2>, occupancy<2, 2>, occupancy<3, 2>}};
+  if (Z < 1 || Z > 3 || G < 1 || G > 2 || (LN != 128 && LN != kMaxLanes)) return -(int)cudaErrorInvalidValue;
+  return table[G - 1][Z - 1](LN);
+}
 
 // Launch one K-step block on `stream` (a cudaStream_t) for Z charge states and G
 // neutral groups. Returns the cudaError_t of the launch (0 on success); does

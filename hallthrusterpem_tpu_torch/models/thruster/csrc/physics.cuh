@@ -5,16 +5,30 @@
 // Counterpart of `make_physics` in the JAX package
 // (hallthrusterpem_tpu/models/thruster/pallas_step.py:102), whose plain PyTorch
 // version is `Physics` in ../fused_step.py. Every expression keeps the operand
-// order of the plain version, so that float32 rounding agrees; the build turns
-// off FMA contraction (-fmad=false) for the same reason.
+// order of the plain version, so that float32 rounding agrees, and the build
+// turns off FMA contraction (-fmad=false), with one exception: the Horner steps
+// of the rate fits, the HLLE fluxes and the PCR update use explicit fmaf (one
+// rounding where the plain version rounds twice, and one instruction where it
+// takes two).
 //
 // Layout. One thread block per sample, one thread per lane (blockDim = LN = 128
 // or 256). Neighbour reads (the circular lane rolls of the TPU kernel) go
-// through the shared staging rows `sh` and wrap over all LN lanes, not over the
-// NC cells: the mask-free cyclic reduction relies on a wrapped read meeting an
-// exact 0 in the padding rows. The two Ohm's-law integrals are a shared-memory
-// tree reduction; per-sample values read at lane 1 (anode sheath, ghost cells)
-// are broadcast through `bc`.
+// through shared staging rows and wrap over all LN lanes, not over the NC
+// cells: the mask-free cyclic reduction relies on a wrapped read meeting an
+// exact 0 in the padding rows. Per-sample values read at one lane are broadcast:
+// lane 1's (anode sheath, left ghost cell) through `bc`, lane NC-2's (right
+// ghost cell) through `bn`, the new exit-plane state (lane NC-2) through `bx`.
+//
+// Barriers. A neighbour exchange is: every thread writes its lane, one block
+// barrier, every thread reads its neighbours. Consecutive exchanges write
+// disjoint rows (the two sets of `sh` alternate, the pressure has a row of its
+// own), so an exchange needs no barrier before its writes: the rows it writes
+// were last read before the previous exchange's barrier. The two Ohm's-law
+// integrals are reduced within each warp by shuffles; the warp partials meet
+// in shared memory behind one barrier and every thread sums them in the same
+// order, so per-sample values stay bit-identical across the block. A step
+// crosses 7 + n_levels barriers (15 at fidelity (2,2): 202 cells, 8 PCR levels;
+// 41 before this design), 2 fewer without MUSCL reconstruction.
 //
 // Template parameters: Z charge states (1..3) and G neutral velocity groups
 // (1, or 2 for the slow/fast two-group model, whose fast group rides one more
@@ -28,7 +42,12 @@
 namespace {
 
 constexpr int kMaxLanes = 256;
-constexpr int kNumBuf = 8;      // shared staging rows: 1 + 2Z + (G - 1) for Z <= 3, G <= 2
+constexpr int kMaxWarps = kMaxLanes / 32;
+// blocks of kMaxLanes threads that each SM must hold at once (both kernels'
+// __launch_bounds__): caps a thread's registers at 65,536 / (256 x 4) = 64;
+// 4 timed best of 2, 3 and 4 (kstep.cu)
+constexpr int kMinBlocksPerSM = 4;
+constexpr int kSetRows = 8;     // staging rows of a set: 1 + 2Z + (G - 1) for Z <= 3, G <= 2
 constexpr int kNCoef = 11;      // degree-10 log-poly in ln(Te)
 constexpr int kNDCoef = 10;     // its derivative
 constexpr int kMaxCoef = 7 * (kNCoef + kNDCoef);  // 6 reactions + excitation
@@ -60,11 +79,13 @@ struct KParams {
 
 // Shared memory of one block (one sample).
 struct Shared {
-  float sh[kNumBuf][kMaxLanes];  // neighbour staging rows
-  float red[2][kMaxLanes];       // Ohm's-law reductions
-  float bc[16];                  // lane-1 broadcast
-  float bx[16];                  // exit-plane broadcast (K-step accumulators)
-  float coef[kMaxCoef];          // rate log-polys
+  float sh[2][kSetRows][kMaxLanes];  // two sets of neighbour staging rows, alternated
+  float pe[kMaxLanes];               // electron pressure, the first exchange of a step
+  float red[2][kMaxWarps];           // Ohm's-law reductions: one partial per warp
+  float bc[16];                      // lane-1 broadcast
+  float bn[8];                       // lane NC-2 broadcast (right ghost cell)
+  float bx[16];                      // new exit-plane state (K-step accumulators)
+  float coef[kMaxCoef];              // rate log-polys
 };
 
 // NaN-propagating max/min/clip (jnp.maximum / jnp.minimum / jnp.clip semantics)
@@ -75,9 +96,9 @@ __device__ __forceinline__ float sgn(float x) { return (float)((x > 0.0f) - (x <
 
 template <int N>
 __device__ __forceinline__ float poly(const float* c, float x) {
-  float out = c[0] * x + c[1];
+  float out = fmaf(c[0], x, c[1]);
 #pragma unroll
-  for (int j = 2; j < N; ++j) out = out * x + c[j];
+  for (int j = 2; j < N; ++j) out = fmaf(out, x, c[j]);
   return out;
 }
 
@@ -151,13 +172,13 @@ __device__ __forceinline__ Invariants load_invariants(const KParams& p, Shared& 
     const float r_i = mx(p.R_i - drz, 0.0f);
     const float AR = (r_o * r_o - r_i * r_i) * p.inv_area;
     v.inv_AR = 1.0f / AR;
-    s.sh[0][l] = AR;
+    s.sh[0][0][l] = AR;
     __syncthreads();
-    v.AR_f = 0.5f * (AR + s.sh[0][(l + 1) & M]);
-    const float ar_ex = s.sh[0][NC - 2];
-    s.sh[1][l] = v.AR_f;
+    v.AR_f = 0.5f * (AR + s.sh[0][0][(l + 1) & M]);
+    const float ar_ex = s.sh[0][0][NC - 2];
+    s.sh[0][1][l] = v.AR_f;
     __syncthreads();
-    const float ARf_m = s.sh[1][(l - 1) & M];
+    const float ARf_m = s.sh[0][1][(l - 1) & M];
     v.dlnA = (v.AR_f - ARf_m) * p.inv_dz * v.inv_AR * v.interior_f;
     v.wp = v.AR_f * v.inv_AR;
     v.wm = ARf_m * v.inv_AR;
@@ -220,7 +241,9 @@ struct StepOut {
 
 // Advance the lane one step from a scrubbed state, in place on `st` (including
 // the ion velocities of the new state). `icir` is the previous step's
-// discharge current. Every thread of the block must call it: it has barriers.
+// discharge current. Lane NC-2 leaves its new heavy-species state in `s.bx`,
+// readable by every thread on return. Every thread of the block must call it:
+// it has barriers.
 template <int Z, int G>
 __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invariants& v, Shared& s,
                                                 Lane<Z, G>& st, float icir, int l, int LN) {
@@ -228,8 +251,11 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
   constexpr int RN2 = 1 + 2 * Z;  // staging row of the fast neutral group
   const int M = LN - 1;
   const int NC = p.NC;
-  float(&sh)[kNumBuf][kMaxLanes] = s.sh;
+  // the two row sets; the exchanges of a step use A, B, A, B, ... in turn
+  float(&A)[kSetRows][kMaxLanes] = s.sh[0];
+  float(&Bs)[kSetRows][kMaxLanes] = s.sh[1];
   float* bc = s.bc;
+  float* bn = s.bn;
   const float interior_f = v.interior_f, face_f = v.face_f, in_channel = v.in_channel;
   const float inv_AR = v.inv_AR;
   float* ri = st.ri;
@@ -278,21 +304,9 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
   for (int z = 1; z < Z; ++z) j_i = j_i + p.zq[z] * ni[z] * ui[z];
   j_i = p.E * j_i;
   const float pe = ne * Te;
-  __syncthreads();
-  sh[0][l] = pe;
-  __syncthreads();
-  const float pe_p = sh[0][(l + 1) & M], pe_m = sh[0][(l - 1) & M];
-  float grad_pe = (pe_p - pe_m) * p.half_inv_dz;
-  if (l == 0) grad_pe = (pe_p - pe) * p.inv_dz;
-  if (l == NC - 1) grad_pe = (pe - pe_m) * p.inv_dz;
-  if (!v.in_domain) grad_pe = 0.0f;
-  const float inv_enmu = 1.0f / (p.E * ne * mu);
-  const float gpe_ne = grad_pe * inv_ne;
-  const float num_igd = (j_i * inv_enmu + gpe_ne) * interior_f;
-  const float den_igd = p.solve_plume ? (inv_AR * inv_enmu * interior_f) : (inv_enmu * interior_f);
-  s.red[0][l] = num_igd;
-  s.red[1][l] = den_igd;
-  if (l == 1) {  // lane-1 values for the anode sheath and the ghost cells
+  // exchange 1: the pressure, and the lane-1 and lane NC-2 values of the ghost cells
+  s.pe[l] = pe;
+  if (l == 1) {
     bc[0] = ne;
     bc[1] = Te;
     bc[2] = j_i;
@@ -303,18 +317,49 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
       bc[9 + z] = ui[z];
     }
   }
-  __syncthreads();
-  for (int w = LN / 2; w > 0; w >>= 1) {
-    if (l < w) {
-      s.red[0][l] += s.red[0][l + w];
-      s.red[1][l] += s.red[1][l + w];
+  if (l == NC - 2) {
+    bn[0] = rn;
+#pragma unroll
+    for (int z = 0; z < Z; ++z) {
+      bn[1 + z] = ri[z];
+      bn[4 + z] = mo[z];
     }
-    __syncthreads();
+    if constexpr (G == 2) bn[7] = rn2;
   }
-  const float num_int = s.red[0][0] * p.dz;
+  __syncthreads();
+  const float pe_p = s.pe[(l + 1) & M], pe_m = s.pe[(l - 1) & M];
+  float grad_pe = (pe_p - pe_m) * p.half_inv_dz;
+  if (l == 0) grad_pe = (pe_p - pe) * p.inv_dz;
+  if (l == NC - 1) grad_pe = (pe - pe_m) * p.inv_dz;
+  if (!v.in_domain) grad_pe = 0.0f;
+  const float inv_enmu = 1.0f / (p.E * ne * mu);
+  const float gpe_ne = grad_pe * inv_ne;
+  const float num_igd = (j_i * inv_enmu + gpe_ne) * interior_f;
+  const float den_igd = p.solve_plume ? (inv_AR * inv_enmu * interior_f) : (inv_enmu * interior_f);
+  // exchange 2: the two lane sums, by warp shuffles, then over the warp partials
+  float w_num = num_igd, w_den = den_igd;
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    w_num = w_num + __shfl_xor_sync(0xffffffffu, w_num, m);
+    w_den = w_den + __shfl_xor_sync(0xffffffffu, w_den, m);
+  }
+  if ((l & 31) == 0) {
+    s.red[0][l >> 5] = w_num;
+    s.red[1][l >> 5] = w_den;
+  }
+  __syncthreads();
+  float sum_num = s.red[0][0], sum_den = s.red[1][0];
+  // unrolled in full: the step loop of the K-step kernel holds no loop but the PCR's
+#pragma unroll
+  for (int w = 1; w < kMaxWarps; ++w) {
+    if (w >= (LN >> 5)) break;
+    sum_num = sum_num + s.red[0][w];
+    sum_den = sum_den + s.red[1][w];
+  }
+  const float num_int = sum_num * p.dz;
   const float ne1 = bc[0], Te1 = bc[1], j_i1 = bc[2];
   const float i_prev = clip(icir, -1e4f, 1e4f);
-  const float den_pl = s.red[1][0] * p.dz + v.rc * p.A_ch;
+  const float den_pl = sum_den * p.dz + v.rc * p.A_ch;
   const float den_all = den_pl + v.l_dt * p.A_ch;
   const float j_prev = i_prev * p.inv_A_ch;
   float j_d = j_prev + (v.dV + num_int - j_prev * den_pl) / den_all;
@@ -340,26 +385,17 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
   } else {
     rho_n_l = (v.mdot_in / p.A_ch - mom_back) / u_n;
   }
-  // (the reduction's trailing barrier orders these writes after all reads of sh)
-  sh[0][l] = rn;
-#pragma unroll
-  for (int z = 0; z < Z; ++z) {
-    sh[1 + z][l] = ri[z];
-    sh[1 + Z + z][l] = mo[z];
-  }
-  if constexpr (G == 2) sh[RN2][l] = rn2;
-  __syncthreads();
   const int lm = (l - 1) & M, lp = (l + 1) & M;
-  const float rho_n_b = (l == 0) ? rho_n_l : ((l == NC - 1) ? sh[0][lm] : rn);
+  const float rho_n_b = (l == 0) ? rho_n_l : ((l == NC - 1) ? bn[0] : rn);
   float rho_n2_b = 0.0f;
-  if constexpr (G == 2) rho_n2_b = (l == 0) ? rho_n2_l : ((l == NC - 1) ? sh[RN2][lm] : rn2);
+  if constexpr (G == 2) rho_n2_b = (l == 0) ? rho_n2_l : ((l == NC - 1) ? bn[7] : rn2);
   float rb[Z], mb[Z], ub[Z];
 #pragma unroll
   for (int z = 0; z < Z; ++z) {
     const float u_gl = mn(bc[9 + z], p.bohm_c[z] * u_bohm1);
     const float r_gl = bc[3 + z];
-    rb[z] = (l == 0) ? r_gl : ((l == NC - 1) ? sh[1 + z][lm] : ri[z]);
-    mb[z] = (l == 0) ? r_gl * u_gl : ((l == NC - 1) ? sh[1 + Z + z][lm] : mo[z]);
+    rb[z] = (l == 0) ? r_gl : ((l == NC - 1) ? bn[1 + z] : ri[z]);
+    mb[z] = (l == 0) ? r_gl * u_gl : ((l == NC - 1) ? bn[4 + z] : mo[z]);
     ub[z] = mb[z] / mx(rb[z], p.rho_floor);
   }
 
@@ -368,85 +404,84 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
 #pragma unroll
   for (int z = 0; z < Z; ++z) sl_r[z] = sl_u[z] = 0.0f;
   if (p.reconstruct) {
-    __syncthreads();
-    sh[0][l] = rho_n_b;
+    // exchanges 3 (set A) and 4 (set B): the cell values, then their forward differences
+    A[0][l] = rho_n_b;
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
-      sh[1 + z][l] = rb[z];
-      sh[1 + Z + z][l] = ub[z];
+      A[1 + z][l] = rb[z];
+      A[1 + Z + z][l] = ub[z];
     }
-    if constexpr (G == 2) sh[RN2][l] = rho_n2_b;
+    if constexpr (G == 2) A[RN2][l] = rho_n2_b;
     __syncthreads();
-    const float dp_n = sh[0][lp] - rho_n_b;
+    const float dp_n = A[0][lp] - rho_n_b;
     float dp_n2 = 0.0f;
-    if constexpr (G == 2) dp_n2 = sh[RN2][lp] - rho_n2_b;
+    if constexpr (G == 2) dp_n2 = A[RN2][lp] - rho_n2_b;
     float dp_r[Z], dp_u[Z];
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
-      dp_r[z] = sh[1 + z][lp] - rb[z];
-      dp_u[z] = sh[1 + Z + z][lp] - ub[z];
+      dp_r[z] = A[1 + z][lp] - rb[z];
+      dp_u[z] = A[1 + Z + z][lp] - ub[z];
     }
-    __syncthreads();
-    sh[0][l] = dp_n;
+    Bs[0][l] = dp_n;
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
-      sh[1 + z][l] = dp_r[z];
-      sh[1 + Z + z][l] = dp_u[z];
+      Bs[1 + z][l] = dp_r[z];
+      Bs[1 + Z + z][l] = dp_u[z];
     }
-    if constexpr (G == 2) sh[RN2][l] = dp_n2;
+    if constexpr (G == 2) Bs[RN2][l] = dp_n2;
     __syncthreads();
     auto minmod = [&](float dq_m, float dq_p) {
       const float q = 0.5f * (sgn(dq_m) + sgn(dq_p)) * mn(fabsf(dq_m), fabsf(dq_p));
       return q * interior_f;
     };
-    sl_rn = minmod(sh[0][lm], dp_n);
-    if constexpr (G == 2) sl_rn2 = minmod(sh[RN2][lm], dp_n2);
+    sl_rn = minmod(Bs[0][lm], dp_n);
+    if constexpr (G == 2) sl_rn2 = minmod(Bs[RN2][lm], dp_n2);
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
-      sl_r[z] = minmod(sh[1 + z][lm], dp_r[z]);
-      sl_u[z] = minmod(sh[1 + Z + z][lm], dp_u[z]);
+      sl_r[z] = minmod(Bs[1 + z][lm], dp_r[z]);
+      sl_u[z] = minmod(Bs[1 + Z + z][lm], dp_u[z]);
     }
   }
   const float Fn = (G == 2 ? v.u_g0 : u_n) * mx(rho_n_b + 0.5f * sl_rn, p.rho_floor) * face_f;
   float Fn2 = 0.0f;
   if constexpr (G == 2) Fn2 = v.u_g1 * mx(rho_n2_b + 0.5f * sl_rn2, p.rho_floor) * face_f;
-  __syncthreads();
+  // exchange 5 (set A): the right states of the faces
 #pragma unroll
   for (int z = 0; z < Z; ++z) {
-    sh[1 + z][l] = rb[z] - 0.5f * sl_r[z];
-    sh[1 + Z + z][l] = ub[z] - 0.5f * sl_u[z];
+    A[1 + z][l] = rb[z] - 0.5f * sl_r[z];
+    A[1 + Z + z][l] = ub[z] - 0.5f * sl_u[z];
   }
   __syncthreads();
   float Fr[Z], Fm[Z];
 #pragma unroll
   for (int z = 0; z < Z; ++z) {
     const float rL = mx(rb[z] + 0.5f * sl_r[z], p.rho_floor);
-    const float rR = mx(sh[1 + z][lp], p.rho_floor);
+    const float rR = mx(A[1 + z][lp], p.rho_floor);
     const float uL = ub[z] + 0.5f * sl_u[z];
-    const float uR = sh[1 + Z + z][lp];
+    const float uR = A[1 + Z + z][lp];
     const float mL = rL * uL, mR = rR * uR;
     const float sL = mn(mn(uL - p.a_i, uR - p.a_i), 0.0f);
     const float sR = mx(mx(uL + p.a_i, uR + p.a_i), 0.0f);
     const float ds = mx(sR - sL, 1e-8f);
-    const float FmL = mL * uL + rL * p.a_i_sq;
-    const float FmR = mR * uR + rR * p.a_i_sq;
+    const float FmL = fmaf(mL, uL, rL * p.a_i_sq);
+    const float FmR = fmaf(mR, uR, rR * p.a_i_sq);
     const float inv_ds = face_f / ds;
-    Fr[z] = (sR * mL - sL * mR + sL * sR * (rR - rL)) * inv_ds;
-    Fm[z] = (sR * FmL - sL * FmR + sL * sR * (mR - mL)) * inv_ds;
+    Fr[z] = fmaf(sL * sR, rR - rL, fmaf(sR, mL, -(sL * mR))) * inv_ds;
+    Fm[z] = fmaf(sL * sR, mR - mL, fmaf(sR, FmL, -(sL * FmR))) * inv_ds;
   }
   // flux divergence (quasi-1D with the plume cone: (1/A) d(A F)/dz)
   const float wF = p.solve_plume ? v.AR_f : 1.0f;
-  __syncthreads();
-  sh[0][l] = p.solve_plume ? Fn * wF : Fn;
+  // exchange 6 (set B): the face fluxes
+  Bs[0][l] = p.solve_plume ? Fn * wF : Fn;
 #pragma unroll
   for (int z = 0; z < Z; ++z) {
-    sh[1 + z][l] = p.solve_plume ? Fr[z] * wF : Fr[z];
-    sh[1 + Z + z][l] = p.solve_plume ? Fm[z] * wF : Fm[z];
+    Bs[1 + z][l] = p.solve_plume ? Fr[z] * wF : Fr[z];
+    Bs[1 + Z + z][l] = p.solve_plume ? Fm[z] * wF : Fm[z];
   }
-  if constexpr (G == 2) sh[RN2][l] = p.solve_plume ? Fn2 * wF : Fn2;
+  if constexpr (G == 2) Bs[RN2][l] = p.solve_plume ? Fn2 * wF : Fn2;
   __syncthreads();
   auto ddz = [&](float F, int j) {
-    return p.solve_plume ? (F * wF - sh[j][lm]) * p.inv_dz * inv_AR : (F - sh[j][lm]) * p.inv_dz;
+    return p.solve_plume ? (F * wF - Bs[j][lm]) * p.inv_dz * inv_AR : (F - Bs[j][lm]) * p.inv_dz;
   };
   const float ddz_n = ddz(Fn, 0);
   float ddz_n2 = 0.0f;
@@ -531,6 +566,15 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
     mo_new[z] = upd(mb[z], ddz_m[z], d_mom[z]);
   }
 
+  if (l == NC - 2) {  // the new exit-plane state, read by the caller after the PCR's barriers
+#pragma unroll
+    for (int z = 0; z < Z; ++z) {
+      s.bx[z] = ri_new[z];
+      s.bx[3 + z] = mo_new[z];
+      s.bx[6 + z] = mo_new[z] / mx(ri_new[z], p.rho_floor);
+    }
+  }
+
   // ---- electron energy: backward Euler in Te, row-normalised PCR over lanes
   float ne_new = ri_new[0] * p.inv_mi_zq[0];
 #pragma unroll
@@ -539,12 +583,14 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
 
   const float Gamma_e = (j_i - j_d_loc) * p.inv_E;
   const float kap = p.ten_ninth * mu * ne * Te;
+  // exchange 7 (set A): electron flux and conductivity; each lane forms the
+  // face values on both of its sides (the left one as lane l-1 forms it)
+  A[0][l] = Gamma_e;
+  A[1][l] = kap;
   __syncthreads();
-  sh[0][l] = Gamma_e;
-  sh[1][l] = kap;
-  __syncthreads();
-  const float G_f = 0.5f * (Gamma_e + sh[0][lp]);
-  const float kf = p.half_inv_dz * (kap + sh[1][lp]);
+  const float Ge_m = A[0][lm], kap_m = A[1][lm];
+  const float G_f = 0.5f * (Gamma_e + A[0][lp]);
+  const float kf = p.half_inv_dz * (kap + A[1][lp]);
   const float Gp = 2.5f * mx(G_f, 0.0f);
   const float Gn = 2.5f * mn(G_f, 0.0f);
   float wall_rate;
@@ -559,12 +605,9 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
   }
   const float nu_eps = p.e_wall * wall_rate;
   const float q_ohm = (j_d_loc - j_i) * E_z * p.inv_E;
-  __syncthreads();
-  sh[0][l] = Gp;
-  sh[1][l] = Gn;
-  sh[2][l] = kf;
-  __syncthreads();
-  const float Gp_m = sh[0][lm], Gn_m = sh[1][lm], kf_m = sh[2][lm];
+  const float G_fm = 0.5f * (Ge_m + Gamma_e);
+  const float Gp_m = 2.5f * mx(G_fm, 0.0f), Gn_m = 2.5f * mn(G_fm, 0.0f);
+  const float kf_m = p.half_inv_dz * (kap_m + kap);
   float sub, sup, diag;
   if (p.solve_plume) {
     sub = (-Gp_m - kf_m) * v.wm * p.inv_dz;
@@ -592,21 +635,25 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
   }
   const float inv = 1.0f / diag;
   float a = sub * inv, c = sup * inv, d = rhs * inv;
+  // PCR levels, one exchange each, in sets B, A, B, ... (exchange 7 used A)
+  // not unrolled: one loop of one barrier in the SASS, whose barriers and
+  // instructions chip_smoke.py counts and multiplies by n_levels
+#pragma unroll 1
   for (int lvl = 0, kk = 1; lvl < p.n_levels; ++lvl, kk *= 2) {
-    __syncthreads();
-    sh[0][l] = a;
-    sh[1][l] = c;
-    sh[2][l] = d;
+    float(&P)[kSetRows][kMaxLanes] = s.sh[(lvl + 1) & 1];
+    P[0][l] = a;
+    P[1][l] = c;
+    P[2][l] = d;
     __syncthreads();
     const int lmk = (l - kk) & M, lpk = (l + kk) & M;
-    const float cm = sh[1][lmk], ap = sh[0][lpk], dm_ = sh[2][lmk], dp_ = sh[2][lpk];
-    const float b_new = 1.0f - a * cm - c * ap;
-    d = d - a * dm_ - c * dp_;
+    const float cm = P[1][lmk], ap = P[0][lpk], dm_ = P[2][lmk], dp_ = P[2][lpk];
+    const float b_new = fmaf(-c, ap, fmaf(-a, cm, 1.0f));
+    d = fmaf(-c, dp_, fmaf(-a, dm_, d));
     const float rb_ = 1.0f / b_new;
     d = d * rb_;
     if (lvl < p.n_levels - 1) {
-      a = -a * sh[0][lmk] * rb_;
-      c = -c * sh[1][lpk] * rb_;
+      a = -a * P[0][lmk] * rb_;
+      c = -c * P[1][lpk] * rb_;
     }
   }
   float Te_new = (l == 0) ? p.anode_Te : d;

@@ -18,15 +18,17 @@
 // What bounds it on an H100: bytes, on paper. Per lane it reads 8 state
 // arrays, nu_anom and omega_ce and writes 8 state arrays and 5 outputs (~92
 // bytes at fidelity (2,2)) against ~1.05e3 float32 operations, a least time of
-// ~7 us at B = 1024. Measured, it takes about one step of the K-step kernel
-// (~34 us on an H100 80GB HBM3 at 700 W, chip_smoke.py phase 11): the step's
-// arithmetic and block barriers set its time, not its traffic. The one-step
-// loop's host work per step costs more than the kernel.
+// ~7 us at B = 1024. Measured, it takes ~30 us a launch on an H100 80GB HBM3
+// at 700 W (chip_smoke.py phase 11) with four blocks per SM (kMinBlocksPerSM),
+// which put 1024 samples in two waves of 528 blocks (32.5 us at the 80
+// registers and three blocks per SM it gets without a minimum); as for the
+// K-step kernel, the issue rate of its instructions is the working hypothesis.
+// The one-step loop's host work per step costs more than the kernel.
 
 #include "physics.cuh"
 
 template <int Z, int G>
-__global__ void __launch_bounds__(kMaxLanes)
+__global__ void __launch_bounds__(kMaxLanes, kMinBlocksPerSM)
 step_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ extras,
             const float* __restrict__ nu_anom_g, const float* __restrict__ omega_g,
             const float* __restrict__ scal_g, const float* __restrict__ coef_g) {

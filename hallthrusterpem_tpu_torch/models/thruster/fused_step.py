@@ -73,6 +73,10 @@ def lanes_for(cfg: SolverConfig) -> int:
 
 def check_supported(cfg: SolverConfig) -> None:
     """Raise for the configurations the lane-layout solver does not run."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: the lane-layout solver runs in float32 only; other "
+            "precisions need the lax solver, which the port does not have yet")
     if cfg.nc > LANES - 2:
         raise NotImplementedError(
             f"num_cells={cfg.num_cells} exceeds the {LANES}-lane kernel layout; grids this "

@@ -102,13 +102,21 @@ class CoupledPEM(torch.nn.Module):
             _load_bfield(dev_cfg, self.cfg), dtype=torch.float32, device=self.device))
         self.sweep_radius = sweep_radius
 
-    def forward(self, inputs: dict) -> dict:
-        """Evaluate the coupled PEM on a dict of (batch,) tensors."""
+    def forward(self, inputs: dict, chunk_steps: Optional[int] = None) -> dict:
+        """Evaluate the coupled PEM on a dict of (batch,) tensors.
+
+        ``chunk_steps`` is the JAX package's argument and has no effect here: the
+        K-step kernel path launches the time loop K steps at a time, and the JAX
+        package's kernel branch ignores it as well."""
         inputs = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
                   for k, v in inputs.items()}
         solver_params, v_cc = _coupled_pre(inputs, self.cfg)
         sol = simulate_batch_multi(solver_params, self.base_B, self.cfg)
         return _coupled_post(inputs, v_cc, sol, self.sweep_radius, self.cfg)
+
+    def example_inputs(self, batch: int = 16, generator: Optional[torch.Generator] = None) -> dict:
+        """:func:`default_coupled_inputs` of ``batch`` samples on the module's device."""
+        return default_coupled_inputs(batch, generator, device=self.device)
 
 
 def _coupled_pre(inputs: dict, cfg: SolverConfig):

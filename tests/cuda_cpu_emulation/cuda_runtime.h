@@ -1,12 +1,15 @@
-// CPU stand-in for the parts of the CUDA runtime that csrc/kstep.cu uses, so that
-// its kernel can be compiled with g++ and run on the CPU in tests: one std::thread
-// per CUDA thread, thread blocks one after another, __syncthreads() as a barrier
-// of the block, and __shared__ as a function-local static shared by the block.
-// The kernel launch syntax is rewritten to emu_launch() by the test.
+// CPU stand-in for the parts of the CUDA runtime that csrc/kstep.cu and
+// csrc/step.cu use, so that their kernels can be compiled with g++ and run on
+// the CPU in tests: one std::thread per CUDA thread, thread blocks one after
+// another, __syncthreads() as a barrier of the block, warp shuffles through a
+// per-warp exchange buffer between two barriers of the warp's 32 threads, and
+// __shared__ as a function-local static shared by the block. The kernel launch
+// syntax is rewritten to emu_launch() by the test.
 #pragma once
 #include <atomic>
 #include <barrier>
 #include <cmath>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -21,6 +24,14 @@ inline dim3 blockDim;
 inline std::barrier<>* emu_barrier = nullptr;
 inline std::atomic<int> emu_or{0};
 
+// one warp's shuffle exchange: each lane posts its value, the warp meets, each
+// lane reads its partner's, the warp meets again before the buffer is reused
+struct EmuWarp {
+  std::barrier<> bar{32};
+  float val[32];
+};
+inline std::vector<std::unique_ptr<EmuWarp>> emu_warps;
+
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -31,7 +42,21 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
 
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// no SM to ask: one block at a time
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+
+// block barriers crossed by thread 0 (__syncthreads_or not counted), read by tests
+inline long emu_barrier_count = 0;
+extern "C" long emu_barriers() { return emu_barrier_count; }
+
+inline void __syncthreads() {
+  if (threadIdx.x == 0) ++emu_barrier_count;
+  emu_barrier->arrive_and_wait();
+}
 
 inline int __syncthreads_or(int pred) {
   emu_barrier->arrive_and_wait();
@@ -43,9 +68,22 @@ inline int __syncthreads_or(int pred) {
   return r;
 }
 
+// every lane of the warp must call it, as on the card with a full mask
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  EmuWarp& w = *emu_warps[threadIdx.x / 32];
+  const unsigned lane = threadIdx.x % 32;
+  w.val[lane] = v;
+  w.bar.arrive_and_wait();
+  const float r = w.val[lane ^ lane_mask];
+  w.bar.arrive_and_wait();
+  return r;
+}
+
 template <class F>
 inline void emu_launch(int grid, int block, F body) {
   blockDim.x = block;
+  emu_warps.clear();
+  for (int i = 0; i < block / 32; ++i) emu_warps.push_back(std::make_unique<EmuWarp>());
   for (int b = 0; b < grid; ++b) {
     std::barrier<> bar(block);
     emu_barrier = &bar;

@@ -197,6 +197,25 @@ def test_grids_wider_than_the_layout_raise():
         fs.check_supported(ct)
 
 
+def test_float64_configs_raise():
+    """JAX runs a dtype="float64" config in float64 on its lax solver; the port has
+    only the float32 lane layout, and says so rather than run it in float32."""
+    import jax
+    from hallthrusterpem_tpu.models.thruster.solver import simulate_batch
+
+    nsteps = 20
+    cj, ct, pj, base_B, pt, bt = _setup(1, nsteps, 2, dtype="float64")
+    with jax.enable_x64(True):
+        ref = simulate_batch({k: jnp.asarray(v, jnp.float64) for k, v in pj.items()},
+                             jnp.asarray(base_B, jnp.float64), cj)
+        assert ref["thrust"].dtype == jnp.float64
+        assert np.all(np.isfinite(np.asarray(ref["thrust"])))
+    with pytest.raises(NotImplementedError, match="lax"):
+        fs.check_supported(ct)
+    with pytest.raises(NotImplementedError, match="float32"):
+        fs.simulate_batch_multi(pt, bt, ct)
+
+
 def test_trace_caps_the_launch_length():
     _, ct, _, _, pt, bt = _setup(1, 100, 2, num_save=10)
     consts, state, prof, sacc = fs.init_carry(pt, bt, ct)

@@ -105,6 +105,17 @@ def test_coupled_pem_kernel_vs_plain_on_card():
         assert float(((got[k] - ref[k]).abs() / ref[k].abs()).max()) < 1e-2, k
 
 
+@pytest.mark.parametrize("ncharge,groups", [(1, 1), (3, 1), (3, 2)])
+def test_kstep_holds_four_blocks_per_sm(ncharge, groups):
+    """The K-step kernel's launch bounds leave room for four 256-thread blocks
+    on an SM, the occupancy its design is timed at."""
+    _need_card()
+    cfg = CoupledPEM(model_fidelity=(2, 2), duration=1e-6, device="cuda").cfg
+    cfg = dataclasses.replace(cfg, ncharge=ncharge, neutral_groups=groups)
+    assert fs.lanes_for(cfg) == 256
+    assert _kernels.kstep_blocks_per_sm(cfg) >= 4
+
+
 def test_kernel_wrapper_checks_inputs_on_card():
     _need_card()
     pem = CoupledPEM(model_fidelity=(0, 0), duration=1e-6, device="cuda")

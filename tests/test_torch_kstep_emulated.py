@@ -6,10 +6,12 @@ shared-memory staging and their barriers on a machine without a GPU; the build
 and the run on the card are checked by the `gpu` tests and chip_smoke.py.
 
 Tolerance: scaled error (max |kernel - plain| / max |plain| per array) below
-1e-5; both round every float32 operation alike, only the reduction order
-differs."""
+1e-5; both round every float32 operation alike, except the reduction order and
+the kernel's explicit fmaf (fused, as on the card, where the plain version
+rounds the product and the sum apart)."""
 
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -96,6 +98,8 @@ def _assert_scaled_close(pairs):
     pytest.param(3, 200, 6, 2497, True, 1, 0, id="3-200-6-2497-True"),
     pytest.param(1, 60, 11, 1244, True, 1, 40, id="1-60-11-1244-True-trace"),  # I_d(t) trace lanes
     pytest.param(2, 60, 7, 1245, True, 2, 0, id="2-60-7-1245-True-two_group"),  # two neutral groups
+    # full width with every staging row of a set and the whole lane NC-2 broadcast in use
+    pytest.param(3, 200, 6, 2497, True, 2, 40, id="3-200-6-2497-True-two_group-trace"),
 ])
 def test_emulated_kernel_matches_plain(emulated, ncharge, num_cells, K, i0, plume, groups, num_save):
     cfg, consts, state, prof, sacc = _state_after_warmup(ncharge, num_cells, plume, groups, num_save)
@@ -117,6 +121,38 @@ def test_emulated_kernel_matches_plain(emulated, ncharge, num_cells, K, i0, plum
     pairs += [(f"sacc {j}", got[2][:, j], ref[2][:, j]) for j in slots]
     _assert_scaled_close(pairs)
     assert got[2][1, fs.A_FAILED] == 1.0 and got[2][0, fs.A_FAILED] == 0.0
+
+
+@pytest.mark.parametrize("ncharge,num_cells,plume,reconstruct", [
+    (3, 200, True, True),   # fidelity (2,2): 8 PCR levels
+    (1, 60, False, False),  # 6 PCR levels, no MUSCL exchanges
+])
+def test_emulated_barriers_per_step(emulated, ncharge, num_cells, plume, reconstruct):
+    """The block barriers a K-step launch crosses per step, counted in the
+    compiled source, are what the note in physics.cuh states, 7 + n_levels with
+    MUSCL reconstruction and 2 fewer without (chip_smoke.py reads the same count
+    from the SASS the card runs): launches of K = 1 and K = 3 differ by two steps."""
+    cfg, consts, state, prof, sacc = _state_after_warmup(ncharge, num_cells, plume)
+    cfg = dataclasses.replace(cfg, reconstruct=reconstruct)
+    B = state.shape[1]
+    lib = emulated["kstep"]
+    lib.emu_barriers.restype = ctypes.c_long
+    p = _kernels.kernel_params(cfg)
+    coef = torch.as_tensor(_kernels.rate_coefficients(cfg))
+    counts = []
+    for K in (1, 3):
+        p.i0, p.K = 0, K
+        carry = [x.clone() for x in (state, prof, sacc)]
+        before = lib.emu_barriers()
+        rc = lib.kstep_launch(
+            ctypes.byref(p), ncharge, 1, B, fs.lanes_for(cfg), *(x.data_ptr() for x in carry),
+            consts["nu_anom"].data_ptr(), consts["omega_ce"].data_ptr(), consts["scalars"].data_ptr(),
+            coef.data_ptr(), None)
+        assert rc == 0
+        counts.append(lib.emu_barriers() - before)
+    stated = 5 + 2 * int(reconstruct) + p.n_levels
+    assert (counts[1] - counts[0]) / (2 * B) == stated  # thread 0 of each block
+    assert stated <= 15
 
 
 @pytest.mark.parametrize("ncharge,num_cells,plume,groups", [

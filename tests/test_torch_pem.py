@@ -60,6 +60,32 @@ def test_bfield_buffer_matches():
     np.testing.assert_allclose(pem.base_B.numpy(), np.asarray(jpem.base_B), rtol=2 ** -23)
 
 
+@pytest.mark.parametrize("chunk_steps", [0, 500])
+def test_chunk_steps_has_no_effect(chunk_steps):
+    """``forward`` takes JAX's ``chunk_steps``; the kernel path ignores it, as the
+    JAX package's kernel branch does."""
+    pem = CoupledPEM(**KW, device="cpu")
+    x = {k: torch.as_tensor(v) for k, v in _inputs(3, seed=2).items()}
+    ref = pem(x)
+    got = pem(x, chunk_steps=chunk_steps)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+def test_example_inputs_match_jax():
+    jx = JaxCoupledPEM(**KW).example_inputs(batch=6)
+    pem = CoupledPEM(**KW, device="cpu")
+    x = pem.example_inputs(batch=6)
+    assert set(x) == set(jx)
+    for k, v in x.items():
+        assert tuple(v.shape) == tuple(jx[k].shape) == (6,), k
+        assert v.dtype == torch.float32 and v.device == pem.device, k
+    assert tuple(pem.example_inputs()["V_a"].shape) == (16,)
+    again = pem.example_inputs(6, torch.Generator().manual_seed(0))
+    assert all(torch.equal(x[k], again[k]) for k in x)
+
+
 def test_default_inputs_and_device_policy(monkeypatch):
     gen = torch.Generator().manual_seed(5)
     x = default_coupled_inputs(16, gen, spread=0.08, device="cpu")

@@ -216,40 +216,48 @@ def test_cycle_averaged_current_matches(t_start):
         cycle_averaged_current(torch.as_tensor(x), torch.as_tensor(tb.copy()), t_start).numpy(), got)
 
 
-def _raw_solver_output(B, nc, Z):
+def _raw_solver_output(B, nc, Z, poison=True):
     """A solver result whose rows trip each failure guard of ``hallthruster_jl``
     (I_eq = e mdot / m_i ~ 3.67 A at 5e-6 kg/s; 1.5 Z I_eq ~ 16.5 A at Z = 3):
     0 healthy, 1 T < 0, 2 I_B0 < 0, 3 I_d < 0, 4 eta_m < 0, 5 I_B0 above the cap,
     6 I_d < 0.2 I_eq, 7 I_d > 8 I_eq, 8 ion-velocity peak upstream (shock),
-    9 non-finite thrust."""
+    9 non-finite thrust. With ``poison=False`` every row is healthy."""
     rng = np.random.default_rng(4)
     f = lambda lo, hi: rng.uniform(lo, hi, B).astype(np.float32)
     raw = {"thrust": f(0.05, 0.09), "discharge_current": f(4.0, 6.0), "ion_current": f(3.0, 4.0),
            "mass_eff": f(0.8, 0.95)}
-    raw["thrust"][1] = -0.01
-    raw["ion_current"][2] = -1.0
-    raw["discharge_current"][3] = -2.0
-    raw["mass_eff"][4] = -0.1
-    raw["ion_current"][5] = 20.0
-    raw["discharge_current"][6] = 0.5
-    raw["discharge_current"][7] = 40.0
-    raw["thrust"][9] = np.nan
+    if poison:
+        raw["thrust"][1] = -0.01
+        raw["ion_current"][2] = -1.0
+        raw["discharge_current"][3] = -2.0
+        raw["mass_eff"][4] = -0.1
+        raw["ion_current"][5] = 20.0
+        raw["discharge_current"][6] = 0.5
+        raw["discharge_current"][7] = 40.0
+        raw["thrust"][9] = np.nan
     for k in ("discharge_current_std", "current_eff", "voltage_eff", "anode_eff"):
         raw[k] = f(0.1, 0.9)
     z = np.linspace(0, 0.08, nc, dtype=np.float32)
     ui = np.broadcast_to(np.tanh((z - 0.02) / 0.01) * 1.5e4, (B, Z, nc)).copy()
-    ui[8, 0, 3] = 5e4  # the peak of charge state 1 sits near the anode
+    if poison:
+        ui[8, 0, 3] = 5e4  # the peak of charge state 1 sits near the anode
     raw.update(ui=ui.astype(np.float32), z=np.broadcast_to(z, (B, nc)).copy())
     for k in ("nu_anom", "B", "Tev", "ne", "nn", "potential", "E"):
         raw[k] = rng.uniform(1, 2, (B, nc)).astype(np.float32)
     return raw
 
 
-@pytest.mark.parametrize("avg_start,shock", [(5e-4, 0.01), (1e-4, None)])
-def test_failure_masks_match(avg_start, shock, monkeypatch):
+@pytest.mark.parametrize("avg_start,shock,poison", [
+    pytest.param(5e-4, 0.01, True, id="0.0005-0.01"),
+    pytest.param(1e-4, None, True, id="0.0001-None"),
+    pytest.param(5e-4, 0.01, False, id="0.0005-0.01-all_good"),
+])
+def test_failure_masks_match(avg_start, shock, poison, monkeypatch):
     """Both wrappers get the same raw solver output (each ``dispatch_solver``
-    replaced) and must NaN the same rows of every output. The I_d window guard
-    applies only when the averaging window starts at or after 0.2 ms."""
+    replaced) and must NaN the same rows of every output, with the same dtypes:
+    float64 everywhere once any row is masked, the solver's float32 when none is.
+    The I_d window guard applies only when the averaging window starts at or
+    after 0.2 ms."""
     monkeypatch.delenv("HTPEM_TRACES", raising=False)
     B = 10
     comp = _component()
@@ -257,7 +265,7 @@ def test_failure_masks_match(avg_start, shock, monkeypatch):
     post = dict(comp["postprocess"], average_start_time=avg_start)
     x = _inputs(B, seed=5)
     x["mdot_a"] = np.full(B, 5e-6, np.float32)
-    raw = _raw_solver_output(B, 202, 3)
+    raw = _raw_solver_output(B, 202, 3, poison)
     monkeypatch.setattr(jthr, "dispatch_solver", lambda p, b, c: {k: jnp.asarray(v) for k, v in raw.items()})
     monkeypatch.setattr(tthr, "dispatch_solver",
                         lambda p, b, c: {k: torch.as_tensor(v) for k, v in raw.items()})
@@ -268,12 +276,15 @@ def test_failure_masks_match(avg_start, shock, monkeypatch):
     bad = np.isnan(ref["T"])
     expected = {0: False, 1: True, 2: True, 3: True, 4: True, 5: True, 6: avg_start >= 2e-4,
                 7: avg_start >= 2e-4, 8: shock is not None, 9: True}
-    assert bad.tolist() == [expected[i] for i in range(B)]
+    assert bad.tolist() == [poison and expected[i] for i in range(B)]
     for k, v in ref.items():
         if k == "thruster_output":
             continue
         g = got[k].numpy()
         assert g.shape == np.shape(v), k
+        assert g.dtype == np.asarray(v).dtype, (k, g.dtype, np.asarray(v).dtype)
+        if k != "model_cost":
+            assert g.dtype == (np.float64 if poison else np.float32), k
         if k == "model_cost":
             assert np.all(g > 0)
             continue
@@ -316,6 +327,34 @@ def test_run_simulation_end_to_end_matches(tmp_path, monkeypatch):
     written_t = json.loads((tmp_path / "torch.json").read_text())
     assert set(written_t) == set(written_j)
     assert set(written_t["output"]["average"]) == set(written_j["output"]["average"])
+
+
+def test_hallthruster_jl_end_to_end_matches_jax():
+    """Both packages' wrappers, end to end with no stand-in: the pem_v0 SPT-100
+    component at its fidelity (2,2) over 2e-6 s (adaptive dt, ~900 steps), B = 3.
+    JAX takes its lax solver on the CPU, the port its K-step plain version. The
+    same rows are masked, the outputs have the same dtypes, and the unguarded
+    time averages agree within 1%, the run-level bound."""
+    comp = _component()
+    duration = 2e-6
+    sim = dict(comp["simulation"], duration=duration, num_save=0)
+    post = dict(comp["postprocess"], average_start_time=0.5 * duration)
+    x = _inputs(3, seed=0)
+    kw = dict(config=comp["config"], simulation=sim, postprocess=post,
+              model_fidelity=tuple(comp["model_fidelity"]))
+    assert jthr.solver_backend(jthr._tree_to_solver_inputs(
+        jmap.format_input_tree(x, jmap.PEM_TO_JULIA, **kw))[0])[0] == "lax"
+    ref = jthr.hallthruster_jl(x, **kw)
+    got = tthr.hallthruster_jl(_torch(x), device="cpu", **kw)
+    assert set(got) == set(ref)
+    np.testing.assert_array_equal(np.isnan(got["T"].numpy()), np.isnan(ref["T"]))
+    for k in ("T", "I_d", "I_B0", "u_ion"):
+        assert got[k].numpy().dtype == np.asarray(ref[k]).dtype, k
+    avg_ref, avg_got = ref["thruster_output"]["output"]["average"], got["thruster_output"]["output"]["average"]
+    for key in ("thrust", "discharge_current", "ion_current"):
+        g, r = avg_got[key].numpy(), np.asarray(avg_ref[key])
+        assert np.all(np.isfinite(r)), key
+        assert np.max(np.abs(g - r) / np.abs(r)) < 0.01, key
 
 
 def test_component_config_json_matches_yaml():
