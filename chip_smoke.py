@@ -27,16 +27,27 @@ Phases, each printed with its seconds:
 8. the one-step kernel against its plain version: one step at B = 1024, the
    state and all five output arrays;
 9. the wrapper path: ``hallthruster_jl`` with the pem_v0 SPT-100 Thruster
-   component (``configs/pem_v0_SPT-100_thruster.json``) at fidelity (2,2),
+   component (of ``configs/pem_v0_SPT-100.json``) at fidelity (2,2),
    B = 1024, ``num_save`` 1000 and the cycle average, cut to ``WRAPPER_DURATION``
    (5e-4 s, the bench length); one warm run and two timed runs, the
    launch count checked, the raw averages the failure guards judge; then the
    kernel's time per launch on this config, with the trace lanes and without;
 10. the one-step driver against the K-step driver: B = 1024, 914 steps;
-11. the one-step kernel's time per launch, its plain version's and its bound.
+11. the one-step kernel's time per launch, its plain version's and its bound;
+12. the lax solver (fidelity (2,2), B = 8, 200 steps) on the card against the
+    same code on the host CPU: in float64, the config's own precision, which
+    routes it to the lax solver, and in float32 through ``solver`` directly;
+13. the full-width lax path: ``CoupledPEM(model_fidelity=(4,2))`` (300 cells + 2
+    ghosts, 3 charge states) at B = 1024 for 2,000 steps, in one segment and in
+    500-step chunks (equal outputs), timed, and the card's busy time a step
+    from a ``torch.profiler`` trace of 20 of its steps; then float64 at
+    fidelity (2,2), B = 1024, 500 steps, timed;
+14. the System path: the pem_v0 SPT-100 JSON configuration, its Thruster cut to
+    ``WRAPPER_DURATION``, ``sample_inputs(256)`` and ``predict(use_model="best")``
+    through the K-step kernel, held equal to a direct ``hallthruster_jl`` call.
 
-It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
+It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"kernels": [...]}``
+line, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
 
@@ -52,7 +63,6 @@ import shutil
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -66,6 +76,19 @@ QOI_RTOL = 1e-2  # time-averaged QoIs (the CPU tests' run-level bound)
 # failure guards judge time averages, and before ~0.2 ms the averaging window
 # lies in the ignition transient, where they reject every row
 WRAPPER_DURATION = 5e-4
+# the lax solver (phases 12-13): batch and steps compared card against host CPU,
+# their bound per dtype; batch and steps of the full-width fidelity (4,2) run,
+# its chunk, and the steps of its segment traced by torch.profiler; steps of the
+# float64 run at fidelity (2,2)
+LAX_PARITY_BATCH = 8
+LAX_PARITY_STEPS = 200
+LAX_TOL = {"float32": 1e-4, "float64": 1e-10}
+LAX_BATCH = 1024
+LAX_WIDE_STEPS = 2000
+LAX_CHUNK = 500
+LAX_TRACE_STEPS = 20
+LAX_F64_STEPS = 500
+SYSTEM_BATCH = 256  # phase 14
 
 
 def log(msg: str) -> None:
@@ -183,6 +206,194 @@ def cuda_ms(fn, reps: int, lead: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
+def lax_card_vs_cpu(cfg, params, base_B, n_steps: int) -> float:
+    """Phase 12 for one config: ``n_steps`` lax-solver steps on the card and on
+    the host CPU from the same inputs; the largest scaled error over the state
+    and the running sums (the failure flags must agree)."""
+    import torch
+
+    from hallthrusterpem_tpu_torch.models.thruster import solver
+
+    carries = []
+    for p, b in ((params, base_B), ({k: v.cpu() for k, v in params.items()}, base_B.cpu())):
+        carries.append(solver._segment_batch(p, b, solver._init_batch(p, b, cfg), cfg, n_steps))
+    (card_state, card_acc, _, card_failed), (cpu_state, cpu_acc, _, cpu_failed) = carries
+    assert torch.equal(card_failed.cpu(), cpu_failed), "failure flags differ"
+    pairs = list(zip(card_state, cpu_state)) + [(card_acc[k], cpu_acc[k]) for k in cpu_acc]
+    for got, _ in pairs:
+        assert got.device.type == params["V_d"].device.type and got.dtype == solver._dtype(cfg)
+    return max(scaled_err(got.cpu(), ref) for got, ref in pairs)
+
+
+def device_busy(fn) -> tuple:
+    """Run ``fn`` under ``torch.profiler`` and read the card's activity from
+    the trace: (busy ms, the union of the kernel, copy and set intervals on the
+    card; host wall ms of ``fn`` and a card sync, traced; card events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us * 1e-3, wall_ms, len(spans)
+
+
+def lax_phases(kstep_us: float) -> dict:
+    """Phases 12 and 13: the lax solver on the card against the host CPU, then
+    the full-width fidelity (4,2) ``CoupledPEM`` (monolithic and chunked, and a
+    traced segment of it) and the float64 fidelity (2,2) one, timed. Returns the
+    ``{"lax": ...}`` record."""
+    import torch
+
+    import hallthrusterpem_tpu_torch.models.thruster as thruster
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+    from hallthrusterpem_tpu_torch.models.thruster import solver
+    from hallthrusterpem_tpu_torch.pem import CoupledPEM, _coupled_pre, default_coupled_inputs
+
+    dev, sync, batch = torch.device("cuda"), torch.cuda.synchronize, LAX_BATCH
+    record = {}
+    # ---- 12. lax on the card against lax on the host CPU: fidelity (2,2), B = 8
+    t0 = time.perf_counter()
+    pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-5, device=dev)
+    inp = default_coupled_inputs(LAX_PARITY_BATCH, torch.Generator().manual_seed(12), spread=0.08, device=dev)
+    for dtype in ("float32", "float64"):
+        cfg = dataclasses.replace(pem.cfg, dtype=dtype, average_start_time=0.0,
+                                  duration=LAX_PARITY_STEPS * pem.cfg.dt)
+        assert thruster.uses_lax_solver(cfg) == (dtype == "float64")
+        params, _ = _coupled_pre(inp, cfg)
+        err = lax_card_vs_cpu(cfg, params, pem.base_B, LAX_PARITY_STEPS)
+        record[f"card_vs_cpu_scaled_err_{dtype}"] = err
+        log(f"[12 lax parity] {dtype}, {cfg.num_cells} cells, {cfg.ncharge} charge states, "
+            f"B={LAX_PARITY_BATCH}, {LAX_PARITY_STEPS} steps: card vs host CPU max scaled error {err:.3e} "
+            f"(tolerance {LAX_TOL[dtype]:g})")
+        assert err < LAX_TOL[dtype], (dtype, err)
+    log(f"[12 lax parity] done ({time.perf_counter() - t0:.2f} s)")
+
+    # ---- 13. the full-width lax path: CoupledPEM at fidelity (4,2), B = 1024
+    t0 = time.perf_counter()
+    probe = CoupledPEM(thruster="SPT-100", model_fidelity=(4, 2), duration=1e-6, device=dev)
+    wide = CoupledPEM(thruster="SPT-100", model_fidelity=(4, 2), duration=LAX_WIDE_STEPS * probe.cfg.dt,
+                      device=dev)
+    assert thruster.uses_lax_solver(wide.cfg) and wide.cfg.nc == 302 and wide.cfg.num_steps == LAX_WIDE_STEPS
+    inp = default_coupled_inputs(batch, torch.Generator().manual_seed(13), spread=0.08, device=dev)
+    _kernels.reset_counts()
+    runs = {}
+    for label, chunk_steps in (("monolithic", None), ("chunked", LAX_CHUNK)):
+        t1 = time.perf_counter()
+        runs[label] = wide(inp, chunk_steps=chunk_steps)
+        sync()
+        runs[label + "_s"] = time.perf_counter() - t1
+    assert _kernels.launch_counts == {"kstep": 0, "step": 0}, _kernels.launch_counts
+    mono, chunked = runs["monolithic"], runs["chunked"]
+    for k in mono:
+        assert torch.equal(torch.nan_to_num(mono[k]), torch.nan_to_num(chunked[k])) and torch.equal(
+            torch.isnan(mono[k]), torch.isnan(chunked[k])), f"chunked run differs in {k}"
+    n_ok = int(torch.isfinite(mono["T"]).sum())
+    # the rates use the faster run: the first one also grows the allocator's pool
+    wall = min(runs["monolithic_s"], runs["chunked_s"])
+    wide_rec = {"num_cells": wide.cfg.num_cells, "ncharge": wide.cfg.ncharge, "batch": batch,
+                "duration_s": wide.cfg.duration, "steps": wide.cfg.num_steps, "wall_s": runs["monolithic_s"],
+                "wall_chunked_s": runs["chunked_s"], "chunk_steps": LAX_CHUNK,
+                "ms_per_step": wall / wide.cfg.num_steps * 1e3,
+                "sim_ms_per_s": batch * wide.cfg.duration * 1e3 / wall, "finite": n_ok}
+    record["fidelity_4_2_float32"] = wide_rec
+    log(f"[13 lax wide] CoupledPEM fidelity (4,2): {wide.cfg.num_cells} cells + 2 ghosts, {wide.cfg.ncharge} "
+        f"charge states, B={batch}, duration {wide.cfg.duration:.4e} s = {wide.cfg.num_steps} steps: wall "
+        f"{runs['monolithic_s']:.3f} s monolithic, {runs['chunked_s']:.3f} s in {LAX_CHUNK}-step chunks (equal "
+        f"outputs); at the faster: "
+        f"{wide_rec['ms_per_step']:.3f} ms/step, {wide_rec['sim_ms_per_s']:.3f} sim-ms/s, finite {n_ok}/{batch} "
+        f"(kstep at fidelity (2,2): {kstep_us:.2f} us/step)")
+    assert n_ok >= batch - 10, n_ok
+    del runs, mono, chunked
+    t1 = time.perf_counter()
+    pem64 = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=LAX_F64_STEPS * pem.cfg.dt,
+                       device=dev)
+    pem64.cfg = dataclasses.replace(pem64.cfg, dtype="float64")
+    out = pem64(default_coupled_inputs(batch, torch.Generator().manual_seed(31), spread=0.08, device=dev))
+    sync()
+    wall = time.perf_counter() - t1
+    for k in ("T", "I_d", "I_B0", "eta_c", "eta_m", "eta_v", "eta_a", "u_ion", "I_d_std"):
+        assert out[k].dtype == torch.float64, (k, out[k].dtype)
+    n_ok = int(torch.isfinite(out["T"]).sum())
+    f64_rec = {"num_cells": pem64.cfg.num_cells, "ncharge": pem64.cfg.ncharge, "batch": batch,
+               "duration_s": pem64.cfg.duration, "steps": pem64.cfg.num_steps, "wall_s": wall,
+               "ms_per_step": wall / pem64.cfg.num_steps * 1e3,
+               "sim_ms_per_s": batch * pem64.cfg.duration * 1e3 / wall, "finite": n_ok}
+    record["fidelity_2_2_float64"] = f64_rec
+    log(f"[13 lax float64] CoupledPEM fidelity (2,2) in float64, B={batch}, {pem64.cfg.num_steps} steps: wall "
+        f"{wall:.3f} s, {f64_rec['ms_per_step']:.3f} ms/step, {f64_rec['sim_ms_per_s']:.3f} sim-ms/s, "
+        f"finite {n_ok}/{batch}, outputs float64")
+    assert n_ok >= batch - 10, n_ok
+    # the card's busy time a step, from a torch.profiler trace of a segment of
+    # the fidelity (4,2) run (its first steps, from the same inputs); after the
+    # timed lax runs, so that no tracing cost can reach them
+    params, _ = _coupled_pre(inp, wide.cfg)
+    carry = solver._init_batch(params, wide.base_B, wide.cfg)
+    sync()
+    busy_ms, traced_ms, n_events = device_busy(
+        lambda: solver._segment_batch(params, wide.base_B, carry, wide.cfg, LAX_TRACE_STEPS))
+    assert n_events > 0, "the profiler recorded no activity on the card"
+    wide_rec.update(trace_steps=LAX_TRACE_STEPS, trace_device_events=n_events,
+                    device_ms_per_step=busy_ms / LAX_TRACE_STEPS,
+                    traced_ms_per_step=traced_ms / LAX_TRACE_STEPS, device_busy_share=busy_ms / traced_ms)
+    log(f"[13 lax wide] torch.profiler trace of {LAX_TRACE_STEPS} steps: {n_events} events on the card, busy "
+        f"{wide_rec['device_ms_per_step']:.3f} ms/step of {wide_rec['traced_ms_per_step']:.3f} ms/step on the "
+        f"host's clock while traced: busy share {wide_rec['device_busy_share']:.3f}")
+    del params, carry
+    log(f"[13 lax] done ({time.perf_counter() - t0:.2f} s)")
+    record["kstep_us_per_step_fidelity_2_2"] = kstep_us
+    return record
+
+
+def system_phase() -> dict:
+    """Phase 14: ``System.predict(use_model="best")`` on the pem_v0 SPT-100 JSON
+    configuration (Cathode -> Thruster -> Plume), the Thruster cut to
+    ``WRAPPER_DURATION``; its outputs against a direct ``hallthruster_jl`` call on
+    the same inputs."""
+    import torch
+
+    import hallthrusterpem_tpu_torch.models.thruster as thruster
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+
+    dev, sync, batch, duration = torch.device("cuda"), torch.cuda.synchronize, SYSTEM_BATCH, WRAPPER_DURATION
+    t0 = time.perf_counter()
+    system = load_system("pem_v0_SPT-100.json", device=dev)
+    comp = system["Thruster"]
+    comp.model_kwargs["simulation"] = dict(comp.model_kwargs["simulation"], duration=duration)
+    comp.model_kwargs["postprocess"] = dict(comp.model_kwargs["postprocess"], average_start_time=0.5 * duration)
+    samples = system.sample_inputs(batch, generator=torch.Generator().manual_seed(14))
+    _kernels.reset_counts()
+    t1 = time.perf_counter()
+    out = system.predict(samples, use_model="best")
+    sync()
+    wall = time.perf_counter() - t1
+    launches = _kernels.launch_counts["kstep"]
+    assert launches > 0, _kernels.launch_counts
+    assert out["T"].device.type == dev.type and out["j_ion"].shape == (batch, 91)
+    direct = thruster.hallthruster_jl({n: out[n] for n in comp.input_names()},
+                                      model_fidelity=comp.model_fidelity, device=dev, **comp.model_kwargs)
+    sync()
+    for k in comp.output_names():
+        assert torch.equal(torch.isnan(out[k]), torch.isnan(direct[k])) and torch.equal(
+            torch.nan_to_num(out[k]), torch.nan_to_num(direct[k])), f"System output {k} differs"
+    n_ok = int(torch.isfinite(out["T"]).sum())
+    log(f"[14 System] pem_v0_SPT-100.json, Thruster duration {duration:g} s, B={batch}: "
+        f"Cathode -> Thruster -> Plume in {wall:.3f} s, kstep launches {launches}, finite {n_ok}/{batch} "
+        f"(the priors are wide: the guards reject rows outside the discharge's range); Thruster outputs equal "
+        f"a direct hallthruster_jl call ({time.perf_counter() - t0:.2f} s)")
+    return {"batch": batch, "wall_s": wall, "kstep_launches": launches, "finite": n_ok}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -197,6 +408,7 @@ def main() -> int:
 
     import hallthrusterpem_tpu_torch.models.thruster as thruster
     from hallthrusterpem_tpu_torch.constants import FUNDAMENTAL_CHARGE
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
     from hallthrusterpem_tpu_torch.models.cathode import cathode_coupling
     from hallthrusterpem_tpu_torch.models.thruster import _kernels
     from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
@@ -425,12 +637,12 @@ def main() -> int:
 
     # ---- 9. the wrapper path: hallthruster_jl, pem_v0 SPT-100 component, B = 1024
     t0 = time.perf_counter()
-    comp_file = Path(thruster.__file__).parents[2] / "configs" / "pem_v0_SPT-100_thruster.json"
-    comp = json.loads(comp_file.read_text())
+    thruster_comp = load_system("pem_v0_SPT-100.json", device=dev)["Thruster"]
+    comp, fidelity = thruster_comp.model_kwargs, thruster_comp.model_fidelity
     simulation = dict(comp["simulation"], duration=WRAPPER_DURATION)
     postprocess = dict(comp["postprocess"], average_start_time=0.5 * WRAPPER_DURATION)
     tree_kw = dict(thruster=comp["thruster"], config=comp["config"], simulation=simulation,
-                   postprocess=postprocess, model_fidelity=tuple(comp["model_fidelity"]))
+                   postprocess=postprocess, model_fidelity=fidelity)
     kw = dict(tree_kw, device=dev)
 
     def thruster_inputs(seed):
@@ -457,7 +669,7 @@ def main() -> int:
     n_ok = int(ok.sum())
     trace = out["discharge_current_trace"]
     wall = min(walls)
-    log(f"[9 wrapper path] hallthruster_jl, fidelity {comp['model_fidelity']}, {wcfg.num_cells} cells, "
+    log(f"[9 wrapper path] hallthruster_jl, fidelity {fidelity}, {wcfg.num_cells} cells, "
         f"{wcfg.ncharge} charge states, adaptive dt {wcfg.dt:.4e} s, {wcfg.num_steps} steps x B={batch}, "
         f"num_save {wcfg.num_save}, cycle average: walls {walls[0]:.3f} / {walls[1]:.3f} s, "
         f"{wall / wcfg.num_steps * 1e6:.2f} us/step, finite {n_ok}/{batch}, "
@@ -531,6 +743,10 @@ def main() -> int:
         f"{max(s_ops_ms, s_bytes_ms) * 1e3:.2f} us (ops {s_ops_ms * 1e3:.2f}, bytes {s_bytes_ms * 1e3:.2f}) "
         f"({time.perf_counter() - t0:.2f} s)")
 
+    # ---- 12-13. the lax solver; 14. the System path
+    lax = lax_phases(kstep_ms / K * 1e3)
+    lax["system"] = system_phase()
+
     kernels = [{
         "name": "kstep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches["kstep"], "launches_wrapper_path": wrapper_launches["kstep"],
@@ -550,6 +766,7 @@ def main() -> int:
         "library_ms": None,
     }]
     log(f"total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"lax": lax}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

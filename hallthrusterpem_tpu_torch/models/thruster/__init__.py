@@ -6,8 +6,10 @@ batched 1-D Hall discharge solver (the JAX package's ``models/thruster/__init__.
 output tree; ``hallthruster_jl`` is the PEM component around it, with the
 NaN-row failure masks. One call solves a whole batch: any config value may be a
 (batch,) tensor. Both run on a CUDA device unless the caller passes
-``device="cpu"``; the solve goes through the K-step CUDA kernel on a CUDA device
-and through its plain PyTorch version on the CPU (:mod:`.fused_step`).
+``device="cpu"``. :func:`dispatch_solver` picks the solver from the config: the
+K-step CUDA kernel on a CUDA device, its plain PyTorch version on the CPU
+(:mod:`.fused_step`), and past 254 cells or in float64 the lax solver
+(:mod:`.solver`) on either.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from hallthrusterpem_tpu_torch.constants import FUNDAMENTAL_CHARGE, atomic_mass_kg
 from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+from hallthrusterpem_tpu_torch.models.thruster import solver
 from hallthrusterpem_tpu_torch.models.thruster.config import Geometry, SolverConfig, make_params
 from hallthrusterpem_tpu_torch.models.thruster.mapping import (
     PEM_TO_JULIA,
@@ -166,11 +169,24 @@ def _tree_to_solver_inputs(tree: dict, device=None):
     return cfg, params, base_B
 
 
-def dispatch_solver(params: dict, base_B, cfg: SolverConfig) -> dict:
-    """Run the discharge solve where ``params`` lie: the K-step CUDA kernel on a
-    CUDA device, its plain version on the CPU. Grids wider than the kernel layout
-    raise ``NotImplementedError``: they need the lax solver, not ported yet."""
-    return fs.simulate_batch_multi(params, base_B, cfg)
+def uses_lax_solver(cfg: SolverConfig) -> bool:
+    """Whether a config needs the lax solver: a grid wider than the K-step
+    kernel's 256-lane layout (past 254 cells), or a dtype other than float32."""
+    return cfg.nc > fs.LANES - 2 or cfg.dtype != "float32"
+
+
+def dispatch_solver(params: dict, base_B, cfg: SolverConfig, chunk_steps: int = 0) -> dict:
+    """Run the discharge solve where ``params`` lie. Float32 configs of at most 254
+    cells run the K-step time loop: the CUDA kernel on a CUDA device, its plain
+    version on the CPU. Finer grids and other dtypes run the lax solver
+    (:mod:`.solver`) on the same device, in segments of ``chunk_steps`` steps
+    when the caller asks for them (0: one segment; a run with an I_d(t) trace is
+    never split, as in the JAX package). The kernel path ignores ``chunk_steps``."""
+    if not uses_lax_solver(cfg):
+        return fs.simulate_batch_multi(params, base_B, cfg)
+    if chunk_steps and cfg.num_steps > chunk_steps and cfg.num_save == 0:
+        return solver.simulate_batch_chunked(params, base_B, cfg, chunk_steps=chunk_steps)
+    return solver.simulate_batch(params, base_B, cfg)
 
 
 def run_simulation(json_input, device=None, **_compat) -> dict:

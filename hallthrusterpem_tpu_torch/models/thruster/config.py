@@ -155,7 +155,9 @@ def background_neutral_ingestion_flux(P_b_torr: torch.Tensor, f_n: torch.Tensor,
     """Effusion mass flux [kg/s] of facility background neutrals through the exit
     plane, added to the anode flow."""
     P = P_b_torr * TORR_2_PA
-    # float32 square root of the float32-rounded argument, as the JAX model takes it
-    root = float(np.sqrt(np.float32(cfg.mi / (2 * math.pi * BOLTZMANN_CONSTANT * cfg.background_temp_K))))
+    # the square root in the inputs' precision, as the JAX model takes it: of the
+    # float32-rounded argument for float32 inputs
+    arg = cfg.mi / (2 * math.pi * BOLTZMANN_CONSTANT * cfg.background_temp_K)
+    root = math.sqrt(arg) if P_b_torr.dtype == torch.float64 else float(np.sqrt(np.float32(arg)))
     flux = P * root
     return f_n * flux * cfg.geometry.channel_area

@@ -76,11 +76,11 @@ def check_supported(cfg: SolverConfig) -> None:
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the lane-layout solver runs in float32 only; other "
-            "precisions need the lax solver, which the port does not have yet")
+            "precisions run on the lax solver, solver.simulate_batch")
     if cfg.nc > LANES - 2:
         raise NotImplementedError(
             f"num_cells={cfg.num_cells} exceeds the {LANES}-lane kernel layout; grids this "
-            "fine need the lax solver, which the port does not have yet")
+            "fine run on the lax solver, solver.simulate_batch")
     if not 1 <= cfg.ncharge <= 3:
         raise ValueError(f"ncharge={cfg.ncharge}: the solver supports 1 to 3 charge states")
     if cfg.neutral_groups not in (1, 2):

@@ -1,11 +1,12 @@
-"""Electron-impact reaction rates as closed-form log-polynomials in ln(Te)
-(the numpy side of the JAX package's ``models/thruster/rates.py``).
+"""Electron-impact reaction rates (the JAX package's ``models/thruster/rates.py``):
+closed-form log-polynomials in ln(Te) for the K-step kernel, and the same fits
+resampled on a log-spaced Te grid for the lax solver's table lookup.
 
-Coefficients are fitted in float64 numpy over a log-spaced Te grid, exactly as
-the JAX kernel builder does when it traces its kernel. Sources of the closed
-forms: Goebel & Katz, "Fundamentals of Electric Propulsion", App. E (Xe single
-ionization and excitation); Lotz, Z. Physik 216, 241 (1968), numerically
-Maxwellian-averaged (higher charge states, Krypton).
+Coefficients are fitted in float64 numpy over the Te grid, exactly as the JAX
+package does. Sources of the closed forms: Goebel & Katz, "Fundamentals of
+Electric Propulsion", App. E (Xe single ionization and excitation); Lotz,
+Z. Physik 216, 241 (1968), numerically Maxwellian-averaged (higher charge
+states, Krypton).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from hallthrusterpem_tpu_torch.constants import ELECTRON_MASS, FUNDAMENTAL_CHARGE
 
@@ -41,12 +43,21 @@ class Reaction:
     energy_eV: float
     log_poly: tuple
 
+    @property
+    def table(self) -> tuple:
+        """Rate coefficients (m^3/s) on TE_GRID, resampled from the fit."""
+        return tuple(float(v) for v in _resample(np.asarray(self.log_poly)))
+
 
 def fit_log_poly(table: np.ndarray, degree: int = 10) -> np.ndarray:
     """Fit ln(k) as a polynomial in ln(Te) over TE_GRID (floored at _K_FLOOR)."""
     x = np.log(TE_GRID)
     y = np.log(np.maximum(np.asarray(table, dtype=np.float64), _K_FLOOR))
     return np.polyfit(x, y, degree)
+
+
+def _resample(coeffs: np.ndarray) -> np.ndarray:
+    return np.exp(np.polyval(coeffs, np.log(TE_GRID)))
 
 
 def _maxwellian_rate(sigma_fn, Te_eV: np.ndarray) -> np.ndarray:
@@ -106,11 +117,16 @@ def build_reactions(propellant: str, ncharge: int) -> list[Reaction]:
     return reactions
 
 
+def _goebel_katz_ex_rate(Te: np.ndarray) -> np.ndarray:
+    """Xe effective excitation Maxwellian rate fit (Goebel & Katz App. E), m^3/s."""
+    vbar = np.sqrt(8 * FUNDAMENTAL_CHARGE * Te / (np.pi * ELECTRON_MASS))
+    return 1.93e-19 * np.exp(-11.6 / Te) / np.sqrt(Te) * vbar
+
+
 def excitation_log_poly(propellant: str) -> tuple[np.ndarray, float]:
     """(log-poly coefficients, energy per event in eV) of the effective excitation."""
     if propellant == "Xenon":
-        vbar = np.sqrt(8 * FUNDAMENTAL_CHARGE * TE_GRID / (np.pi * ELECTRON_MASS))
-        raw = 1.93e-19 * np.exp(-11.6 / TE_GRID) / np.sqrt(TE_GRID) * vbar
+        raw = _goebel_katz_ex_rate(TE_GRID)
         E = _EX_ENERGY["Xenon"]
     else:
         E = _EX_ENERGY.get(propellant, 10.0)
@@ -121,3 +137,27 @@ def excitation_log_poly(propellant: str) -> tuple[np.ndarray, float]:
 def dlnk_dlnTe_poly(log_poly) -> np.ndarray:
     """Coefficients of d(ln k)/d(ln Te), the exact derivative of the fit."""
     return np.polyder(np.asarray(log_poly, dtype=np.float64))
+
+
+def excitation_table(propellant: str) -> tuple[np.ndarray, float]:
+    """(rate table on TE_GRID, energy per event in eV) of the effective
+    excitation, resampled from its log-poly fit."""
+    coeffs, energy = excitation_log_poly(propellant)
+    return _resample(coeffs), energy
+
+
+def derivative_table(reaction_or_coeffs) -> np.ndarray:
+    """``d(ln k)/d(ln Te)`` on TE_GRID (the table twin of :func:`dlnk_dlnTe_poly`)."""
+    coeffs = getattr(reaction_or_coeffs, "log_poly", reaction_or_coeffs)
+    return np.polyval(dlnk_dlnTe_poly(coeffs), np.log(TE_GRID))
+
+
+def lookup_rate(table: torch.Tensor, Te: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation of a TE_GRID table at the electron temperature Te (eV):
+    the grid is uniform in log10(Te), so the index is arithmetic; the position is
+    truncated to an integer after the clip, as the JAX package casts it."""
+    logt = torch.log10(torch.clamp(Te, TE_MIN, TE_MAX))
+    pos = (logt - float(_LOG_TE[0])) / float(_LOG_TE[1] - _LOG_TE[0])
+    idx = torch.clamp(pos.to(torch.int32), 0, N_TABLE - 2).long()
+    frac = pos - idx
+    return table[idx] * (1 - frac) + table[idx + 1] * frac

@@ -1,10 +1,11 @@
 """Coupled PEM: cathode -> 1-D discharge solver -> plume (the JAX package's
-``pem.py`` on its K-step kernel branch).
+``pem.py``).
 
 Stage 1 (:func:`_coupled_pre`) runs the cathode model and assembles the solver
-parameters; stage 2 is :func:`~.models.thruster.fused_step.simulate_batch_multi`,
-the K-step time loop around the hand-written CUDA kernel; stage 3
-(:func:`_coupled_post`) runs the plume model and assembles the outputs.
+parameters; stage 2 is :func:`~.models.thruster.dispatch_solver`, the K-step
+time loop around the hand-written CUDA kernel, or the lax solver past 254 cells
+and in float64; stage 3 (:func:`_coupled_post`) runs the plume model and
+assembles the outputs.
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ import torch
 
 from hallthrusterpem_tpu_torch.models.cathode import cathode_coupling
 from hallthrusterpem_tpu_torch.models.plume import current_density
-from hallthrusterpem_tpu_torch.models.thruster import _load_bfield
+from hallthrusterpem_tpu_torch.models.thruster import _load_bfield, dispatch_solver
 from hallthrusterpem_tpu_torch.models.thruster.config import Geometry, SolverConfig, make_params
-from hallthrusterpem_tpu_torch.models.thruster.fused_step import simulate_batch_multi
 from hallthrusterpem_tpu_torch.models.thruster.mapping import default_model_fidelity
 from hallthrusterpem_tpu_torch.utils import load_thruster, resolve_device
 
@@ -105,13 +105,15 @@ class CoupledPEM(torch.nn.Module):
     def forward(self, inputs: dict, chunk_steps: Optional[int] = None) -> dict:
         """Evaluate the coupled PEM on a dict of (batch,) tensors.
 
-        ``chunk_steps`` is the JAX package's argument and has no effect here: the
-        K-step kernel path launches the time loop K steps at a time, and the JAX
-        package's kernel branch ignores it as well."""
+        The solve goes through :func:`~.models.thruster.dispatch_solver`: the K-step
+        kernel path at up to 254 cells in float32, which launches the time loop K
+        steps at a time and ignores ``chunk_steps`` as the JAX package's kernel
+        branch does; the lax solver otherwise, whose time loop ``chunk_steps``
+        splits into segments of that many steps (the same numbers)."""
         inputs = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
                   for k, v in inputs.items()}
         solver_params, v_cc = _coupled_pre(inputs, self.cfg)
-        sol = simulate_batch_multi(solver_params, self.base_B, self.cfg)
+        sol = dispatch_solver(solver_params, self.base_B, self.cfg, chunk_steps=chunk_steps or 0)
         return _coupled_post(inputs, v_cc, sol, self.sweep_radius, self.cfg)
 
     def example_inputs(self, batch: int = 16, generator: Optional[torch.Generator] = None) -> dict:

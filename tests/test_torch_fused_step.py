@@ -198,22 +198,30 @@ def test_grids_wider_than_the_layout_raise():
 
 
 def test_float64_configs_raise():
-    """JAX runs a dtype="float64" config in float64 on its lax solver; the port has
-    only the float32 lane layout, and says so rather than run it in float32."""
+    """The float32 lane layout refuses a dtype="float64" config, naming the lax
+    solver; ``dispatch_solver`` runs it there, in float64, and every output
+    matches JAX's lax solver (float64, 20 steps) within 1e-12 of its scale."""
     import jax
     from hallthrusterpem_tpu.models.thruster.solver import simulate_batch
+    from hallthrusterpem_tpu_torch.models.thruster import dispatch_solver
 
     nsteps = 20
     cj, ct, pj, base_B, pt, bt = _setup(1, nsteps, 2, dtype="float64")
     with jax.enable_x64(True):
         ref = simulate_batch({k: jnp.asarray(v, jnp.float64) for k, v in pj.items()},
                              jnp.asarray(base_B, jnp.float64), cj)
-        assert ref["thrust"].dtype == jnp.float64
-        assert np.all(np.isfinite(np.asarray(ref["thrust"])))
+        ref = {k: np.asarray(v) for k, v in ref.items()}
+    assert ref["thrust"].dtype == np.float64 and np.all(np.isfinite(ref["thrust"]))
     with pytest.raises(NotImplementedError, match="lax"):
         fs.check_supported(ct)
     with pytest.raises(NotImplementedError, match="float32"):
         fs.simulate_batch_multi(pt, bt, ct)
+    got = dispatch_solver(pt, bt, ct)
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        g = got[k].numpy()
+        assert g.dtype == r.dtype == np.float64 and g.shape == r.shape, k
+        assert np.max(np.abs(g - r)) <= 1e-12 * np.max(np.abs(r)), k
 
 
 def test_trace_caps_the_launch_length():

@@ -1,5 +1,5 @@
 """The K-step and one-step CUDA kernels on the card against their plain PyTorch
-versions.
+versions; the lax solver on the card against the host CPU; the System path.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Each test decides inside itself whether a card is present and skips otherwise,
@@ -128,3 +128,42 @@ def test_kernel_wrapper_checks_inputs_on_card():
         fs.kstep(state[:, :1], prof, sacc, consts, 0, 5, pem.cfg)
     with pytest.raises(ValueError):
         fs.kstep(state, prof.transpose(1, 2), sacc, consts, 0, 5, pem.cfg)
+
+
+@pytest.mark.parametrize("dtype,fidelity", [("float32", (4, 2)), ("float64", (2, 2))])
+def test_lax_solver_on_card_matches_cpu(dtype, fidelity):
+    """The lax solver (302 cells in float32, 202 in float64) runs on the card it
+    is given and agrees with the same code on the host CPU after 100 steps:
+    1e-4 scaled in float32, 1e-10 in float64; no kernel is launched."""
+    from hallthrusterpem_tpu_torch.models.thruster import dispatch_solver, solver, uses_lax_solver
+
+    _need_card()
+    pem = CoupledPEM(model_fidelity=fidelity, duration=2e-5, device="cuda")
+    cfg = dataclasses.replace(pem.cfg, average_start_time=0.0, duration=100 * pem.cfg.dt, dtype=dtype)
+    assert uses_lax_solver(cfg)
+    x = default_coupled_inputs(8, torch.Generator().manual_seed(2), spread=0.08, device="cuda")
+    params, _ = _coupled_pre(x, cfg)
+    before = dict(_kernels.launch_counts)
+    got = dispatch_solver(params, pem.base_B, cfg)
+    assert _kernels.launch_counts == before
+    assert got["thrust"].device.type == "cuda" and got["thrust"].dtype == getattr(torch, dtype)
+    ref = solver.simulate_batch({k: v.cpu() for k, v in params.items()}, pem.base_B.cpu(), cfg)
+    tol = {"float32": 1e-4, "float64": 1e-10}[dtype]
+    for k in ("thrust", "discharge_current", "ion_current", "ui", "Tev", "ne", "E"):
+        assert _scaled(got[k].cpu(), ref[k]) < tol, k
+
+
+def test_system_predict_launches_kstep():
+    """``System.predict`` on the pem_v0 SPT-100 configuration runs Cathode ->
+    Thruster -> Plume on the card, the Thruster through the K-step kernel."""
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+
+    _need_card()
+    system = load_system("pem_v0_SPT-100.json", device="cuda")
+    comp = system["Thruster"]
+    comp.model_kwargs["simulation"] = dict(comp.model_kwargs["simulation"], duration=2e-6)
+    samples = system.sample_inputs(16, generator=torch.Generator().manual_seed(3))
+    before = _kernels.launch_counts["kstep"]
+    out = system.predict(samples, use_model="best")
+    assert _kernels.launch_counts["kstep"] > before
+    assert out["T"].device.type == "cuda" and out["j_ion"].shape == (16, 91)
