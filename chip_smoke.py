@@ -44,9 +44,21 @@ Phases, each printed with its seconds:
     fidelity (2,2), B = 1024, 500 steps, timed;
 14. the System path: the pem_v0 SPT-100 JSON configuration, its Thruster cut to
     ``WRAPPER_DURATION``, ``sample_inputs(256)`` and ``predict(use_model="best")``
-    through the K-step kernel, held equal to a direct ``hallthruster_jl`` call.
+    through the K-step kernel, held equal to a direct ``hallthruster_jl`` call;
+15. the surrogate path on ``configs/pem_v0_SPT-100_compression.json`` (the r5
+    campaign's configuration with its compression maps), the Thruster cut to
+    ``WRAPPER_DURATION``: (a) ``generate_training_data`` labels ``SURR_SAMPLES``
+    prior samples in chunks of ``SURR_CHUNK`` through the K-step kernel; (b) an
+    ``MLPSurrogate`` at the r5 width (4 x 512, 8 members) trains
+    ``SURR_STEPS`` steps at batch ``SURR_BATCH`` on the card, TF32 off, its ms a
+    step beside the operations bound; (c) ``System.predict(use_model=None)`` on
+    ``SURR_PREDICT`` fresh samples on the card against the same state on the CPU;
+    (d) ``save_to_file`` and ``load_from_file`` predict bit for bit alike; (e)
+    ``fit`` (MISC, ``SURR_MISC_ITERS`` iterations) through the K-step kernel, then
+    ``as_torch_fn(training=True)`` on the card against the host ``predict``.
 
-It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"kernels": [...]}``
+It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
+line (phase 15), a ``{"kernels": [...]}``
 line, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -63,6 +75,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -89,6 +102,21 @@ LAX_CHUNK = 500
 LAX_TRACE_STEPS = 20
 LAX_F64_STEPS = 500
 SYSTEM_BATCH = 256  # phase 14
+# phase 15: samples labelled and their chunk; the MLP's width, members, steps and
+# batch (the r5 campaign's, runs/r5/surr); fresh samples predicted; MISC
+# iterations, their surplus points, the samples of the card-vs-host check; the
+# bound on scaled errors (float32 on the card and on the CPU)
+SURR_SAMPLES = 2048
+SURR_CHUNK = 1024
+SURR_HIDDEN = (512,) * 4
+SURR_ENSEMBLE = 8
+SURR_STEPS = 500
+SURR_BATCH = 2048
+SURR_PREDICT = 4096
+SURR_MISC_ITERS = 3
+SURR_MISC_REFINE = 64
+SURR_MISC_CHECK = 512
+SURR_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -392,6 +420,169 @@ def system_phase() -> dict:
         f"(the priors are wide: the guards reject rows outside the discharge's range); Thruster outputs equal "
         f"a direct hallthruster_jl call ({time.perf_counter() - t0:.2f} s)")
     return {"batch": batch, "wall_s": wall, "kstep_launches": launches, "finite": n_ok}
+
+
+def surrogate_phase() -> dict:
+    """Phase 15: the surrogates on the card, trained on data the K-step kernel
+    labels; returns the ``{"surrogate": ...}`` record."""
+    import numpy as np
+    import torch
+
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+    from hallthrusterpem_tpu_torch.core.system import System
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+    from hallthrusterpem_tpu_torch.surrogate.domain import failure_mask
+    from hallthrusterpem_tpu_torch.surrogate.mlp import (
+        EnsembleMLP, MLPSurrogate, generate_training_data, make_optimizer, train_step)
+
+    dev, sync, config = torch.device("cuda"), torch.cuda.synchronize, "pem_v0_SPT-100_compression.json"
+    t0 = time.perf_counter()
+    build = Path("build") / "surrogate"
+    build.mkdir(parents=True, exist_ok=True)
+    cache = build / "pem_v0_SPT-100_mlp_train_data.pkl"
+    cache.unlink(missing_ok=True)  # label anew: no resume from an earlier run
+    system = load_system(config, device=dev)
+    comp = system["Thruster"]
+    comp.model_kwargs["simulation"] = dict(comp.model_kwargs["simulation"], duration=WRAPPER_DURATION)
+    comp.model_kwargs["postprocess"] = dict(comp.model_kwargs["postprocess"],
+                                            average_start_time=0.5 * WRAPPER_DURATION)
+    rec: dict = {}
+
+    # ---- (a) labelled data through the K-step kernel
+    _kernels.reset_counts()
+    t1 = time.perf_counter()
+    samples, outputs = generate_training_data(system, SURR_SAMPLES, seed=15, chunk=SURR_CHUNK, cache_path=cache)
+    sync()
+    label_s = time.perf_counter() - t1
+    launches = _kernels.launch_counts["kstep"]
+    n_ok = int((~failure_mask(outputs, skip=set(samples))).sum())
+    rec["label"] = {"samples": SURR_SAMPLES, "chunk": SURR_CHUNK, "wall_s": label_s, "kstep_launches": launches,
+                    "finite_rows": n_ok, "rows_per_s": SURR_SAMPLES / label_s}
+    log(f"[15a label] {SURR_SAMPLES} prior samples in chunks of {SURR_CHUNK}, Thruster {WRAPPER_DURATION:g} s: "
+        f"{label_s:.3f} s ({SURR_SAMPLES / label_s:.1f} rows/s), kstep launches {launches}, finite rows "
+        f"{n_ok}/{SURR_SAMPLES}")
+    assert launches > 0, _kernels.launch_counts
+    assert cache.exists() and n_ok > SURR_SAMPLES // 2, n_ok
+
+    # ---- (b) the MLP ensemble at the r5 width, trained on the card with TF32 off
+    assert not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest"
+    surr = MLPSurrogate(system, hidden=SURR_HIDDEN, ensemble=SURR_ENSEMBLE, seed=15)
+    t1 = time.perf_counter()
+    info = surr.fit(samples, outputs, steps=SURR_STEPS, batch=SURR_BATCH, log_every=100)
+    sync()
+    fit_s = time.perf_counter() - t1
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert all(p.device.type == "cuda" for p in surr.net.parameters())
+    # one step's time on the card (CUDA events, fixed minibatches), its
+    # operations (the products: forward, weight gradients, input gradients past
+    # the first layer; the elementwise passes add under 1%) and its bytes (the
+    # parameters and both Adam moments read and written, the minibatch read)
+    K, B = SURR_ENSEMBLE, SURR_BATCH
+    sizes = [surr.n_in, *SURR_HIDDEN, surr.n_out + 1]
+    macs = [a * b for a, b in zip(sizes[:-1], sizes[1:])]
+    ops = 2 * K * B * (2 * sum(macs) + sum(macs[1:]))
+    n_par = sum(p.numel() for p in surr.net.parameters())
+    n_bytes = 4 * (6 * n_par + K * B * (surr.n_in + 2 * surr.n_out + 1))
+    net = EnsembleMLP(surr.net.to_numpy()).to(dev)
+    opt_state = make_optimizer(net, 2e-3, SURR_STEPS, 1e-5)
+    g = torch.Generator().manual_seed(0)
+    xb = torch.randn((K, B, surr.n_in), generator=g).to(dev)
+    yb = torch.randn((K, B, surr.n_out), generator=g).to(dev)
+    mb, fb = torch.ones_like(yb), torch.zeros((K, B), device=dev)
+    step = lambda: train_step(net, opt_state, xb, yb, mb, fb)
+    step()
+    step_ms = cuda_ms(step, 20, lead=True)
+    ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
+    rec["train"] = {"hidden": list(SURR_HIDDEN), "ensemble": K, "steps": SURR_STEPS, "batch": B,
+                    "n_in": surr.n_in, "n_out": surr.n_out, "params": n_par, "wall_s": fit_s,
+                    "ms_per_step": step_ms, "ops_per_step": ops, "bytes_per_step": n_bytes,
+                    "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                    "val_rmse": info["val_rmse"], "val_fail_acc": info["val_fail_acc"], "tf32": False}
+    log(f"[15b train] MLPSurrogate {SURR_HIDDEN} x {K} members, {surr.n_in} inputs -> {surr.n_out} outputs + "
+        f"fail logit, {n_par} parameters: fit of {SURR_STEPS} steps at batch {B} in {fit_s:.3f} s; "
+        f"{step_ms:.3f} ms/step on the card (TF32 off), {ops:.3e} ops and {n_bytes:.3e} bytes a step -> bound "
+        f"{max(ops_ms, bytes_ms):.3f} ms (ops at 67 TFLOP/s float32 {ops_ms:.3f}, bytes {bytes_ms:.4f}), "
+        f"{step_ms / max(ops_ms, bytes_ms):.2f}x; val_rmse {info['val_rmse']:.4f}, "
+        f"val_fail_acc {info['val_fail_acc']:.3f}")
+    assert np.isfinite(info["val_rmse"])
+    del net, opt_state, xb, yb, mb, fb
+
+    # ---- (c) System.predict(use_model=None) on the card against the CPU
+    system.system_surrogate = surr
+    fresh = system.sample_inputs(SURR_PREDICT, generator=torch.Generator().manual_seed(151),
+                                 use_pdf=["calibration", "nuisance"])
+    out = system.predict(fresh)
+    sync()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        out = system.predict(fresh)
+        sync()
+        walls.append(time.perf_counter() - t1)
+    cpu_sys = load_system(config, device="cpu")
+    cpu_sys.system_surrogate = MLPSurrogate.from_state(surr.to_state(), cpu_sys)
+    ref = cpu_sys.predict({k: v.cpu() for k, v in fresh.items()})
+    names = [k for k in ref if k not in fresh]
+    errs = {k: scaled_err(out[k].cpu().double(), ref[k].double()) for k in names}
+    rec["predict"] = {"samples": SURR_PREDICT, "wall_s": min(walls), "per_s": SURR_PREDICT / min(walls),
+                      "card_vs_cpu_max_scaled_err": max(errs.values())}
+    log(f"[15c predict] System.predict(use_model=None), {SURR_PREDICT} samples: {min(walls) * 1e3:.3f} ms "
+        f"({SURR_PREDICT / min(walls):.0f} predictions/s) on the card; card vs CPU max scaled error "
+        f"{max(errs.values()):.3e} over {len(names)} outputs (tolerance {SURR_TOL:g}), worst "
+        f"{max(errs, key=errs.get)}")
+    assert all(out[k].device.type == "cuda" for k in names) and "sys_fail_prob" in names
+    assert max(errs.values()) <= SURR_TOL, errs
+
+    # ---- (d) state round trip: save_to_file -> load_from_file (with its sidecar)
+    path = system.save_to_file("surrogate_trained.json", build)
+    loaded = System.load_from_file(path, device=dev)
+    again = loaded.predict(fresh)
+    sync()
+    assert loaded.system_surrogate is not None
+    assert all(torch.equal(again[k], out[k]) for k in names), "reloaded predictions differ"
+    rec["state_roundtrip_bit_equal"] = True
+    log(f"[15d state] {path.name} + {path.name}.state.pkl "
+        f"({(build / (path.name + '.state.pkl')).stat().st_size / 2**20:.1f} MiB): reloaded predictions equal "
+        f"bit for bit")
+    del loaded, again, cpu_sys
+
+    # ---- (e) MISC sparse grids through the K-step kernel; card vs host
+    system.system_surrogate = None
+    evals0 = {c.name: dict(c.model_costs) for c in system.components}
+    _kernels.reset_counts()
+    t1 = time.perf_counter()
+    history = system.fit(max_iter=SURR_MISC_ITERS, num_refine=SURR_MISC_REFINE, verbose=False)
+    sync()
+    misc_s = time.perf_counter() - t1
+    misc_launches = _kernels.launch_counts["kstep"]
+    thruster_evals = {str(a): n - evals0["Thruster"].get(a, (0, 0.0))[0]
+                      for a, (n, _) in system["Thruster"].model_costs.items()
+                      if n > evals0["Thruster"].get(a, (0, 0.0))[0]}
+    hist = [{"component": h["component"], "alpha": list(h["alpha"]), "beta": list(h["beta"]),
+             "error_indicator": h["error_indicator"], "num_evals": h["num_evals"]} for h in history]
+    for h in hist:
+        log(f"[15e MISC] activate {h['component']} alpha={tuple(h['alpha'])} beta={tuple(h['beta'])} "
+            f"indicator {h['error_indicator']:.3e}, {h['num_evals']} evaluations")
+    x = system.sample_inputs(SURR_MISC_CHECK, generator=torch.Generator().manual_seed(152),
+                             use_pdf=["calibration", "nuisance"])
+    host = system.predict(x, use_model=None, training=True)
+    card = system.as_torch_fn(training=True)(x)
+    sync()
+    misc_names = [v.name for v in system.outputs()]
+    misc_errs = {k: scaled_err(card[k].cpu().double(), host[k].cpu().double()) for k in misc_names}
+    rec["misc"] = {"iterations": len(hist), "num_refine": SURR_MISC_REFINE, "wall_s": misc_s,
+                   "kstep_launches": misc_launches, "thruster_evals": thruster_evals, "history": hist,
+                   "card_vs_host_max_scaled_err": max(misc_errs.values())}
+    log(f"[15e MISC] fit of {len(hist)} iterations in {misc_s:.3f} s: Thruster evaluations {thruster_evals}, "
+        f"kstep launches {misc_launches}; as_torch_fn(training=True) on the card (float32) vs the host predict "
+        f"(float64), {SURR_MISC_CHECK} samples: max scaled error {max(misc_errs.values()):.3e} (tolerance "
+        f"{SURR_TOL:g}), worst {max(misc_errs, key=misc_errs.get)}")
+    assert len(hist) == SURR_MISC_ITERS and misc_launches > 0, (hist, _kernels.launch_counts)
+    assert all(card[k].device.type == "cuda" and card[k].dtype == torch.float32 for k in misc_names)
+    assert max(misc_errs.values()) <= SURR_TOL, misc_errs
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[15 surrogate] done ({rec['wall_s']:.2f} s)")
+    return rec
 
 
 def main() -> int:
@@ -746,6 +937,8 @@ def main() -> int:
     # ---- 12-13. the lax solver; 14. the System path
     lax = lax_phases(kstep_ms / K * 1e3)
     lax["system"] = system_phase()
+    # ---- 15. the surrogates
+    surrogate = surrogate_phase()
 
     kernels = [{
         "name": "kstep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -767,6 +960,7 @@ def main() -> int:
     }]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"lax": lax}), flush=True)
+    print(json.dumps({"surrogate": surrogate}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

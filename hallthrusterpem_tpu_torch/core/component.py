@@ -73,6 +73,8 @@ class Component:
     model_kwargs: dict = field(default_factory=dict)
     #: (evaluations, seconds) of the model keyed by model-fidelity tuple
     model_costs: dict = field(default_factory=dict)
+    #: the MISC surrogate the trainer installs (None: no surrogate)
+    surrogate: Any = None
 
     def __post_init__(self):
         self.model_fidelity = _as_tuple(self.model_fidelity)

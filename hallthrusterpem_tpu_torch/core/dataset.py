@@ -60,7 +60,11 @@ def dataset_shape(ds: Dataset) -> tuple:
     return max(shapes, key=len)[:1] if shapes else ()
 
 
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def as_numpy(ds: Dataset) -> dict:
     """The dataset's entries as host numpy arrays."""
-    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-            for k, v in ds.items()}
+    return {k: to_numpy(v) for k, v in ds.items()}

@@ -1,11 +1,14 @@
 """System: a DAG of components evaluated feed-forward over a batch axis (the
 JAX package's ``core/system.py``).
 
-``predict`` is one sweep over the components in dependency order, each model
-batched over ``(batch, ...)`` tensors on the system's device (a CUDA device
-unless the caller passes ``device="cpu"``). The surrogate side of the JAX
-``System`` (``fit``, ``load_training_cache``, ``as_jax_fn``, ``get_allocation``)
-and its plots are not ported yet: they raise, naming their ROADMAP.md item.
+``predict(use_model="best")`` is one sweep over the components in dependency
+order, each model batched over ``(batch, ...)`` tensors on the system's device (a
+CUDA device unless the caller passes ``device="cpu"``). ``predict(use_model=None)``
+runs the trained surrogates instead: the system-level MLP ensemble
+(``system_surrogate``) when one is set, else each component's MISC surrogate
+where it has one. ``fit`` trains the MISC surrogates, ``as_torch_fn`` returns the
+surrogate chain as a pure function on tensors. The plots are not ported yet:
+they raise, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ class System:
         self.name = name
         self.root_dir = Path(root_dir) if root_dir else None
         self.device = resolve_device(device)
+        self.train_history: list[dict] = []
+        self.system_surrogate = None  # optional end-to-end surrogate (surrogate.mlp)
         self.logger = logging.getLogger(f"hallthrusterpem_tpu_torch.{name}")
         self._link_variables()
         self._topo_sort()
@@ -217,6 +222,7 @@ class System:
         normalized: bool = False,
         model_dir=None,
         verbose: bool = False,
+        training: bool = False,
         qoi_ind: Optional[Sequence[str]] = None,
         **kwargs,
     ) -> Dataset:
@@ -224,12 +230,14 @@ class System:
 
         :param samples: dataset keyed by exogenous-input name, one leading shape;
             values are moved to the system's device
-        :param use_model: ``'best'``/``'truth'`` (or None: the port has no trained
-            surrogates yet) runs the true models at their fidelity; ``'worst'``
-            at the lowest fidelity
+        :param use_model: ``'best'``/``'truth'`` runs the true models at their
+            fidelity, ``'worst'`` at the lowest fidelity; None runs the trained
+            surrogates: the system-level one when set, else each component's
+            MISC surrogate where it has one (the true model where not)
         :param normalized: whether ``samples`` are in normalized space
         :param model_dir: each component that takes an ``output_path`` writes its
             raw output under ``model_dir/<component name>``
+        :param training: MISC surrogates evaluate their active index set only
         :param qoi_ind: return only these outputs (and their coordinates)
         """
         data: Dataset = {}
@@ -238,6 +246,10 @@ class System:
             var = self._variables.get(name)
             data[name] = var.denormalize(value) if (normalized and var is not None) else value
 
+        if use_model is None and self.system_surrogate is not None:
+            data.update(self.system_surrogate.predict(data, training=training, qoi_ind=qoi_ind))
+            return self._select(data, qoi_ind)
+
         for comp in self.components:
             missing = [n for n in comp.input_names() if n not in data]
             if missing:
@@ -245,6 +257,10 @@ class System:
             batch = {n: data[n] for n in comp.input_names()}
             if verbose:
                 self.logger.info("Evaluating component %s ...", comp.name)
+            if use_model is None and comp.surrogate is not None:
+                out = comp.surrogate.predict(batch, training=training)
+                data.update({k: torch.as_tensor(v, device=self.device) for k, v in out.items()})
+                continue
             extra = {"device": self.device}
             if model_dir is not None:
                 comp_dir = Path(model_dir) / comp.name
@@ -253,7 +269,10 @@ class System:
             if use_model == "worst":
                 extra["model_fidelity"] = tuple(0 for _ in comp.model_fidelity)
             data.update(comp.call_model(batch, **extra))
+        return self._select(data, qoi_ind)
 
+    @staticmethod
+    def _select(data: Dataset, qoi_ind) -> Dataset:
         if qoi_ind is not None:
             keep = set(qoi_ind) | {f"{q}_coords" for q in qoi_ind}
             return {k: v for k, v in data.items() if k in keep}
@@ -262,19 +281,94 @@ class System:
     def __call__(self, samples: Dataset, **kwargs) -> Dataset:
         return self.predict(samples, **kwargs)
 
-    # ------------------------------------------------------------------ not ported yet
+    def as_torch_fn(self, training: bool = True, qoi_ind: Optional[Sequence[str]] = None):
+        """Feed-forward system prediction through the trained surrogates as a pure
+        ``samples -> outputs`` function on tensors on the system's device (the
+        device-side counterpart of ``predict(use_model=None)``, e.g. for a batched
+        posterior or a Sobol' sweep). Every component must have a surrogate
+        unless a system-level one is set. Compressed field outputs come back as
+        latent coefficients, as from :meth:`predict`."""
+        if self.system_surrogate is not None:
+            return self.system_surrogate.as_torch_fn(training=training, qoi_ind=qoi_ind)
+        chain = []
+        for comp in self.components:
+            if comp.surrogate is None:
+                raise ValueError(f"Component {comp.name} has no trained surrogate; "
+                                 "as_torch_fn requires a fully-trained system")
+            chain.append((comp.input_names(), comp.surrogate.as_torch_fn(training=training)))
+
+        keep = None if qoi_ind is None else set(qoi_ind)
+
+        def fn(samples: Dataset) -> Dataset:
+            data = dict(samples)
+            for in_names, f in chain:
+                data.update(f({n: data[n] for n in in_names}))
+            return data if keep is None else {k: v for k, v in data.items() if k in keep}
+
+        return fn
+
+    as_jax_fn = as_torch_fn  # the JAX package's name, for code written against it
+
+    # ------------------------------------------------------------------ training
     def fit(self, **kwargs):
-        _not_ported("fit", "A9 (surrogates)")
+        """Adaptive multi-fidelity (MISC) surrogate training:
+        :func:`hallthrusterpem_tpu_torch.surrogate.train.fit_system`."""
+        from hallthrusterpem_tpu_torch.surrogate.train import fit_system
 
-    def load_training_cache(self, path):
-        _not_ported("load_training_cache", "A9 (surrogates)")
+        return fit_system(self, **kwargs)
 
-    def as_jax_fn(self, *args, **kwargs):
-        _not_ported("as_jax_fn", "A9 (surrogates)")
+    def clear(self):
+        """Drop all trained surrogate state."""
+        for comp in self.components:
+            comp.surrogate = None
+        self.system_surrogate = None
+        self.train_history = []
+
+    def load_training_cache(self, path) -> int:
+        """Merge a mid-fit training-data cache (written by
+        ``fit(cache_interval=...)``, by either package) into the component
+        surrogates' evaluation caches, so a restarted fit reuses the model
+        evaluations. Returns the number of cached points."""
+        import pickle
+
+        from hallthrusterpem_tpu_torch.surrogate.component import ComponentSurrogate
+
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        n = 0
+        for comp in self.components:
+            entry = payload.get(comp.name)
+            if entry is None:
+                continue
+            if comp.surrogate is None:
+                comp.surrogate = ComponentSurrogate(comp, device=self.device)
+            for alpha, cache in entry.get("eval_cache", {}).items():
+                comp.surrogate.eval_cache.setdefault(alpha, {}).update(cache)
+                n += len(cache)
+            for alpha, keys in entry.get("repaired", {}).items():
+                comp.surrogate._repaired_keys.setdefault(alpha, set()).update(map(tuple, keys))
+            for alpha, rec in entry.get("model_costs", {}).items():
+                comp.model_costs.setdefault(alpha, rec)
+        return n
 
     def get_allocation(self):
-        _not_ported("get_allocation", "A9 (surrogates)")
+        """Cost accounting: ``(cost_alloc, model_cost, overhead_cost, model_evals)``,
+        the seconds and evaluations per component and model fidelity, their total
+        seconds, and the trainer's own seconds."""
+        cost_alloc: dict[str, dict] = {}
+        model_cost = 0.0
+        model_evals: dict[str, dict] = {}
+        for comp in self.components:
+            cost_alloc[comp.name] = {}
+            model_evals[comp.name] = {}
+            for alpha, (n, total) in comp.model_costs.items():
+                cost_alloc[comp.name][alpha] = total
+                model_evals[comp.name][alpha] = n
+                model_cost += total
+        overhead = sum(h.get("overhead_s", 0.0) for h in self.train_history)
+        return cost_alloc, model_cost, overhead, model_evals
 
+    # ------------------------------------------------------------------ not ported yet
     def plot_slice(self, *args, **kwargs):
         _not_ported("plot_slice", "A11b (plots)")
 

@@ -331,6 +331,14 @@ class Variable:
             y = n.inverse(y)
         return y
 
+    def normalized_domain(self) -> Optional[tuple[float, float]]:
+        """The domain in normalized space, ordered low to high."""
+        dom = self.get_domain()
+        if dom is None:
+            return None
+        lo, hi = (float(np.asarray(self.normalize(v))) for v in dom)
+        return (min(lo, hi), max(lo, hi))
+
     def get_domain(self) -> Optional[tuple[float, float]]:
         """The variable's domain; the distribution's support when it has none."""
         if self.domain is not None:

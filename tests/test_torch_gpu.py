@@ -1,5 +1,7 @@
 """The K-step and one-step CUDA kernels on the card against their plain PyTorch
-versions; the lax solver on the card against the host CPU; the System path.
+versions; the lax solver on the card against the host CPU; the System path; the
+surrogates' products (the MLP ensemble's forward, the tensor interpolant) on the
+card against the host CPU.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Each test decides inside itself whether a card is present and skips otherwise,
@@ -167,3 +169,56 @@ def test_system_predict_launches_kstep():
     out = system.predict(samples, use_model="best")
     assert _kernels.launch_counts["kstep"] > before
     assert out["T"].device.type == "cuda" and out["j_ion"].shape == (16, 91)
+
+
+def test_mlp_forward_on_card_matches_cpu():
+    """The r5 width (21 inputs, 4 x 512, 8 members, 36 outputs) on random
+    weights, 4096 rows: the card within 1e-5 of the CPU's scale; with TF32
+    switched on around the call the forward still runs in full float32 (the same
+    numbers bit for bit)."""
+    import numpy as np
+
+    from hallthrusterpem_tpu_torch.surrogate.mlp import EnsembleMLP, full_fp32
+
+    _need_card()
+    rng = np.random.default_rng(0)
+    sizes = [21, 512, 512, 512, 512, 36]
+    params = [((rng.standard_normal((8, a, b)) * np.sqrt(2 / a)).astype(np.float32),
+               (0.1 * rng.standard_normal((8, 1, b))).astype(np.float32)) for a, b in zip(sizes[:-1], sizes[1:])]
+    x = torch.as_tensor(rng.standard_normal((4096, 21)).astype(np.float32))
+    cpu, card = EnsembleMLP(params), EnsembleMLP(params).cuda()
+    with torch.no_grad(), full_fp32():
+        ref, got = cpu(x), card(x.cuda())
+    assert _scaled(got.cpu(), ref) < 1e-5
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        with torch.no_grad(), full_fp32():
+            again = card(x.cuda())
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("method", ["lagrange", "linear"])
+def test_eval_tensor_on_card_matches_cpu(method):
+    """``eval_tensor`` on the card against the CPU: four dims, 10,000 points,
+    float64 within 1e-12 and float32 within 1e-5 of the values' scale."""
+    import numpy as np
+
+    from hallthrusterpem_tpu_torch.surrogate import TensorInterpolant, eval_tensor, knots_for_level
+
+    _need_card()
+    knots = [knots_for_level(lv, 2, (-1.0, 1.0)) for lv in (2, 1, 3, 0)]
+    rng = np.random.default_rng(1)
+    ti = TensorInterpolant(knots=knots, values=rng.standard_normal((5, 3, 7, 1, 6)), method=method)
+    xq = rng.uniform(-1.1, 1.1, (10_000, 4))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        args = lambda dev: ([torch.as_tensor(k, dtype=dtype, device=dev) for k in ti.knots],
+                            [torch.as_tensor(w, dtype=dtype, device=dev) for w in ti._weights],
+                            torch.as_tensor(ti.values, dtype=dtype, device=dev),
+                            torch.as_tensor(xq, dtype=dtype, device=dev))
+        ref = eval_tensor(*args("cpu"), method=method)
+        got = eval_tensor(*args("cuda"), method=method)
+        assert got.dtype == dtype and _scaled(got.cpu(), ref) < tol, dtype

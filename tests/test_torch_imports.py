@@ -1,6 +1,6 @@
-"""The port and chip_smoke.py import without JAX, PyYAML, h5py, pandas or the
-JAX package: the machine with the card has none of them. Every module of the
-port is imported, the System layer's among them."""
+"""The port and chip_smoke.py import without JAX, optax, PyYAML, h5py, pandas or
+the JAX package: the machine with the card has none of them. Every module of the
+port is imported, the System layer's and the surrogates' among them."""
 
 import subprocess
 import sys
@@ -10,7 +10,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "yaml", "h5py", "pandas", "hallthrusterpem_tpu")
+BLOCKED = ("jax", "jaxlib", "optax", "yaml", "h5py", "pandas", "hallthrusterpem_tpu")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -35,7 +35,9 @@ def test_port_imports_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = set(proc.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 28
+    assert len(names) >= 36
     pkg = "hallthrusterpem_tpu_torch."
     assert {pkg + m for m in ("ops.tridiag", "ops.svd", "models.fake_thruster", "core.dataset", "core.variables",
-                              "core.component", "core.system", "core.json_loader")} <= names
+                              "core.component", "core.system", "core.json_loader", "surrogate",
+                              "surrogate.knots", "surrogate.misc", "surrogate.interpolate", "surrogate.component",
+                              "surrogate.train", "surrogate.mlp", "surrogate.domain")} <= names

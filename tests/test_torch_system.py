@@ -264,17 +264,23 @@ def test_load_system_paths(tmp_path, monkeypatch):
     assert path == Path("saved.json") and (tmp_path / "saved.json").exists()
 
 
-def test_component_get_cost_and_unported_methods(fake_system):
+def test_component_get_cost_and_unported_methods(fake_system, tmp_path):
+    """Costs recorded by ``call_model``; the surrogate side (A9) answers: the
+    allocation counts the evaluations, ``as_jax_fn`` needs trained surrogates, a
+    missing training cache is not found; the plots still raise, naming A11b."""
     s = fake_system
     s.predict(s.sample_inputs(8, seed=0), use_model="best")
     comp = s["Thruster"]
     assert comp.get_cost(comp.model_fidelity) > 0
-    for call, item in ((s.get_allocation, "A9"), (s.fit, "A9"), (s.as_jax_fn, "A9"),
-                       (s.plot_slice, "A11b"), (s.plot_allocation, "A11b")):
-        with pytest.raises(NotImplementedError, match=item):
+    cost_alloc, model_cost, overhead, evals = s.get_allocation()
+    assert evals["Thruster"][comp.model_fidelity] == 8 and model_cost > 0 and overhead == 0.0
+    with pytest.raises(ValueError, match="no trained surrogate"):
+        s.as_jax_fn()
+    with pytest.raises(FileNotFoundError):
+        s.load_training_cache(tmp_path / "cache.pkl")
+    for call in (s.plot_slice, s.plot_allocation):
+        with pytest.raises(NotImplementedError, match="A11b"):
             call()
-    with pytest.raises(NotImplementedError, match="A9"):
-        s.load_training_cache("cache.pkl")
 
 
 def test_compression_and_svd_rank_match_jax():
@@ -342,6 +348,29 @@ def test_committed_configs_match_yaml(name):
                           v.distribution and (v.distribution.kind, v.distribution.params))
         assert [spec(v) for v in tc.inputs + tc.outputs] == [spec(v) for v in jc.inputs + jc.outputs]
     assert [v.name for v in tsys.inputs()] == [v.name for v in jsys.inputs()]
+
+
+def test_compression_config_matches_r5():
+    """``configs/pem_v0_SPT-100_compression.json`` is the r5 campaign's
+    ``pem_v0_SPT-100_compression.yml`` with its state's compression maps (u_ion
+    rank 20, j_ion rank 6), as the JAX loader reads them: the document equal, and
+    every projection, grid and rank equal."""
+    r5 = ROOT / "runs" / "r5" / "surr" / "pem_v0_SPT-100_compression.yml"
+    doc = json.loads((config_dir() / "pem_v0_SPT-100_compression.json").read_text())
+    assert set(doc.pop("state")) == {"compression"}
+    assert doc == yaml_as_json_doc(r5)
+    jsys, tsys = jyaml.load_system(r5), load_system("pem_v0_SPT-100_compression.json", device="cpu")
+    ranks = {}
+    for jc, tc in zip(jsys.components, tsys.components):
+        for jv, tv in zip(jc.outputs, tc.outputs):
+            if jv.compression is None or jv.compression.projection is None:
+                assert tv.compression is None or tv.compression.projection is None
+                continue
+            ranks[tv.name] = tv.compression.rank
+            assert tv.compression.rank == jv.compression.rank == tv.compression.latent_size
+            np.testing.assert_array_equal(tv.compression.projection, jv.compression.projection)
+            np.testing.assert_array_equal(tv.compression.coords, jv.compression.coords)
+    assert ranks == {"u_ion": 20, "j_ion": 6}
 
 
 def test_h9_device_matches_jax():
