@@ -55,10 +55,27 @@ Phases, each printed with its seconds:
     ``SURR_PREDICT`` fresh samples on the card against the same state on the CPU;
     (d) ``save_to_file`` and ``load_from_file`` predict bit for bit alike; (e)
     ``fit`` (MISC, ``SURR_MISC_ITERS`` iterations) through the K-step kernel, then
-    ``as_torch_fn(training=True)`` on the card against the host ``predict``.
+    ``as_torch_fn(training=True)`` on the card against the host ``predict``;
+16. the UQ path: (a) the bundled spt100 data through the port's loaders (23
+    conditions); (b) the r5 campaign's solver-verified posterior predictive
+    (``data/r5_posterior_predictive.npz``: 64 posterior draws x 23 conditions)
+    through ``monte_carlo.run_experimental_comparison`` with the true model
+    (``configs/pem_v0_SPT-100_compression.json``, the Thruster at its own 2e-3 s)
+    and the K-step kernel, each rel-L2 against the data held to
+    ``UQ_PREDICTIVE_GATE`` x r5's and each per-condition median to r5's within
+    ``UQ_MEDIAN_GAP_TOL``, and the carry of its launch ``UQ_PARITY_LAUNCH``
+    (B = 1,472) through one kernel launch against the plain version; (c) the
+    batched device posterior on phase 15's saved system (17 parameters, V_cc, T,
+    I_d, u_ion, j_ion) on the card against the CPU, each value within
+    ``UQ_POSTERIOR_TOL`` of its own, then ``mcmc.main`` with the stretch sampler (``UQ_STRETCH_WALKERS``
+    x ``UQ_STRETCH_ITERS``) and with DRAM (``UQ_DRAM_WALKERS`` x
+    ``UQ_DRAM_ITERS``), every log-posterior call on the whole batch, the
+    ``.npz`` chain read back equal; (d) ``sobol_sa`` over the 18 calibration and
+    nuisance inputs, ``UQ_SOBOL_N`` x 20 rows in one batch on the card, and the
+    card against the CPU at ``UQ_SOBOL_CHECK_N``.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
-line (phase 15), a ``{"kernels": [...]}``
+line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"kernels": [...]}``
 line, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -117,6 +134,28 @@ SURR_MISC_ITERS = 3
 SURR_MISC_REFINE = 64
 SURR_MISC_CHECK = 512
 SURR_TOL = 1e-5
+# phase 16: the gate on each rel-L2 against the data of the r5 posterior
+# predictive (data/r5_posterior_predictive.npz), as a factor range of r5's; the
+# bound on the largest relative gap of its per-condition medians to r5's; the
+# predictive's K-step launch whose carry is held against the plain version at
+# its batch; thetas of the card-vs-CPU posterior check and its bound (relative,
+# on each value); the
+# stretch and DRAM runs (walkers, iterations); Sobol' samples on the card, at the
+# card-vs-CPU check, its bound on S1 and ST, and the pressure
+UQ_PREDICTIVE_GATE = (0.75, 1.25)
+UQ_MEDIAN_GAP_TOL = 1e-2
+UQ_PARITY_LAUNCH = 10_000
+UQ_CHECK_THETAS = 64
+UQ_POSTERIOR_TOL = 1e-4
+UQ_STRETCH_WALKERS = 64
+UQ_STRETCH_ITERS = 1000
+UQ_DRAM_WALKERS = 8
+UQ_DRAM_ITERS = 500
+UQ_SOBOL_N = 5000
+UQ_SOBOL_CHECK_N = 512
+UQ_SOBOL_TOL = 1e-4
+UQ_SOBOL_PB = 1e-5
+UQ_QOIS = ["V_cc", "T", "I_d", "u_ion", "j_ion"]
 
 
 def log(msg: str) -> None:
@@ -126,6 +165,17 @@ def log(msg: str) -> None:
 def scaled_err(a, b) -> float:
     """max |a - b| / max |b|: the error in units of the array's own scale."""
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def carry_errs(fs, got, ref) -> tuple:
+    """(max scaled error, max absolute error, arrays compared) of one K-step
+    carry ``(state, prof, sacc)`` against another: each state and profile row,
+    and the accumulator slots up to the circuit current."""
+    (ks, kp, ka), (ps, pp, pa) = got, ref
+    pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kp[j], pp[j]) for j in range(kp.shape[0])]
+    pairs += [(ka[:, j], pa[:, j]) for j in range(fs.A_ICIR + 1)]
+    return (max(scaled_err(k, p) for k, p in pairs), max(float((k - p).abs().max()) for k, p in pairs),
+            len(pairs))
 
 
 def count_ops(fn) -> int:
@@ -149,6 +199,23 @@ def count_ops(fn) -> int:
                 numel = max((a.numel() for a in args if isinstance(a, torch.Tensor)), default=1)
                 Counter.n += max(numel, out.numel() if isinstance(out, torch.Tensor) else 1)
             return out
+
+    with Counter():
+        fn()
+    return Counter.n
+
+
+def count_dispatches(fn) -> int:
+    """aten operators ``fn`` dispatches (views and copies included): on the card
+    about one launch each, the host's work per call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Counter.n += 1
+            return func(*args, **(kwargs or {}))
 
     with Counter():
         fn()
@@ -585,6 +652,226 @@ def surrogate_phase() -> dict:
     return rec
 
 
+def uq_phase(trained: Path) -> dict:
+    """Phase 16: the UQ path on the card; ``trained`` is phase 15's saved system.
+    Returns the ``{"uq": ...}`` record."""
+    import numpy as np
+    import torch
+
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+    from hallthrusterpem_tpu_torch.core.system import System
+    from hallthrusterpem_tpu_torch import data
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from hallthrusterpem_tpu_torch.scripts.pem_v0 import mcmc, monte_carlo, sobol
+    from hallthrusterpem_tpu_torch.scripts.pem_v0.dataset_util import load_experiment
+    from hallthrusterpem_tpu_torch.uq import read_mcmc_chain, sobol_sa
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    t0 = time.perf_counter()
+    build = Path("build") / "uq"
+    build.mkdir(parents=True, exist_ok=True)
+    rec: dict = {}
+
+    # ---- (a) the bundled spt100 data through the port's loaders
+    ops, obs, _, fields = load_experiment(["spt100"], UQ_QOIS)
+    counts = {q: int(np.isfinite(obs[q]).sum()) for q in obs}
+    counts.update({q: sum(s is not None for s in fields[q]) for q in fields})
+    log(f"[16a data] spt100: {len(ops['P_b'])} operating conditions; conditions with data {counts}")
+    assert len(ops["P_b"]) == 23 and counts["V_cc"] == 7 and counts["T"] == 17 and counts["I_d"] == 17, counts
+    rec["data"] = {"conditions": len(ops["P_b"]), "with_data": counts}
+
+    # ---- (b) the r5 solver-verified posterior predictive through the K-step kernel
+    with np.load(Path(data.__file__).parent / "r5_posterior_predictive.npz") as f:
+        r5 = {k: f[k] for k in f.files}
+    system = load_system("pem_v0_SPT-100_compression.json", device=dev)
+    sim = system["Thruster"].model_kwargs["simulation"]
+    duration = float(sim["duration"])
+    assert duration == float(r5["duration"]), (duration, r5["duration"])
+    calib_names = [v.name for v in system.inputs() if v.category == "calibration"]
+    assert calib_names == [str(n) for n in r5["calib_names"]], calib_names
+    args = monte_carlo.parser.parse_args(["pem_v0_SPT-100_compression.json", "--data", "spt100",
+                                          "--qois", "V_cc", "T", "I_d"])
+    rows = len(r5["draws"]) * len(ops["P_b"])
+    real_kstep, seen, carry = fs.kstep, [0], {}
+
+    def capturing(state, prof, sacc, consts, i0, K, cfg, physics=None):
+        # keep the carry going into one mid-run launch, to hold the kernel
+        # against its plain version at this batch below
+        seen[0] += 1
+        if seen[0] == UQ_PARITY_LAUNCH:
+            carry.update(args=(state.clone(), prof.clone(), sacc.clone(), consts, i0, K, cfg))
+        real_kstep(state, prof, sacc, consts, i0, K, cfg, physics)
+
+    fs.kstep = capturing
+    try:
+        _kernels.reset_counts()
+        t1 = time.perf_counter()
+        res = monte_carlo.run_experimental_comparison(system, args, None, calib_names, draws=r5["draws"],
+                                                      sources=["model"])
+        sync()
+        wall = time.perf_counter() - t1
+        launches = _kernels.launch_counts["kstep"]
+    finally:
+        fs.kstep = real_kstep
+    pred = res["preds"]["model"]
+    finite = int(torch.isfinite(pred["T"]).sum())
+    pred_rec = {"rows": rows, "duration_s": duration, "wall_s": wall,
+                "sim_ms_per_s": rows * duration * 1e3 / wall,
+                "kstep_launches": launches, "finite_rows": finite, "rel_l2": {}, "r5_rel_l2": {},
+                "median_max_rel_gap": {}}
+    for i, q in enumerate(str(x) for x in r5["qois"]):
+        got, ref = res["rel_l2"][q]["model"], float(r5["rel_l2_model"][i])
+        mask = np.isfinite(r5[f"model_median_{q}"])
+        gap = np.abs(res["median"][q]["model"][mask] / r5[f"model_median_{q}"][mask] - 1)
+        pred_rec["rel_l2"][q], pred_rec["r5_rel_l2"][q] = got, ref
+        pred_rec["median_max_rel_gap"][q] = float(np.max(gap))
+        log(f"[16b predictive] {q}: rel-L2 vs data {got:.4e} (r5 {ref:.4e}, ratio {got / ref:.3f}, gate "
+            f"{UQ_PREDICTIVE_GATE}); per-condition medians vs r5's: largest relative gap {np.max(gap):.3e}")
+    log(f"[16b predictive] {rows} rows ({len(r5['draws'])} r5 posterior draws x {len(ops['P_b'])} "
+        f"conditions), "
+        f"Thruster {duration:g} s: "
+        f"{wall:.3f} s ({rows * duration * 1e3 / wall:.2f} sim-ms/s), kstep launches {launches}, "
+        f"finite rows {finite}/{rows}")
+    assert launches >= UQ_PARITY_LAUNCH and "args" in carry, (launches, UQ_PARITY_LAUNCH)
+    c_state, c_prof, c_sacc, c_consts, c_i0, c_K, c_cfg = carry.pop("args")
+    outs = []
+    for block, physics in ((real_kstep, None), (fs.kstep_plain, fs.Physics(c_cfg))):
+        s_, p_, a_ = c_state.clone(), c_prof.clone(), c_sacc.clone()
+        block(s_, p_, a_, c_consts, c_i0, c_K, c_cfg, physics)
+        outs.append((s_, p_, a_))
+    sync()
+    p_err, p_abs, n_arrays = carry_errs(fs, *outs)
+    log(f"[16b predictive] launch {UQ_PARITY_LAUNCH} (step {c_i0}, K={c_K}, B={c_state.shape[1]}) vs "
+        f"{c_K} plain steps from its carry: max scaled error {p_err:.3e} (tolerance {STATE_RTOL:g}), "
+        f"max absolute error {p_abs:.3e} over {n_arrays} arrays")
+    pred_rec["kstep_vs_plain_scaled_err"] = p_err
+    rec["predictive"] = pred_rec
+    del carry, c_state, c_prof, c_sacc, c_consts, outs
+    assert p_err < STATE_RTOL, p_err
+    assert launches > 0 and finite >= rows // 2, (launches, finite)
+    for q, got in pred_rec["rel_l2"].items():
+        lo, hi = (g * pred_rec["r5_rel_l2"][q] for g in UQ_PREDICTIVE_GATE)
+        assert lo <= got <= hi, (q, got, lo, hi)
+        assert pred_rec["median_max_rel_gap"][q] <= UQ_MEDIAN_GAP_TOL, (q, pred_rec["median_max_rel_gap"])
+    del system, res, pred
+
+    # ---- (c) the device posterior on phase 15's trained system, card vs CPU; stretch and DRAM
+    post_args = mcmc.parser.parse_args([str(trained), "--data", "spt100", "--qois", *UQ_QOIS])
+    lps, fns = [], {}
+    for where in ("cpu", "cuda"):
+        sys_ = System.load_from_file(trained, device=where)
+        calib = [v for v in sys_.inputs() if v.category == "calibration"]
+        d_ops, d_obs, d_sig, d_fields = mcmc.build_dataset(sys_, post_args)
+        fns[where] = mcmc.build_device_posterior(sys_, post_args, calib, [v.name for v in calib],
+                                                 d_ops, d_obs, d_sig, d_fields)
+        lps.append(fns[where][0](r5["draws"][:UQ_CHECK_THETAS]))
+    lp_cpu, lp_card = lps
+    assert np.all(np.abs(lp_cpu) < 1e29), lp_cpu  # every r5 draw lies in the domain
+    post_err = float(np.max(np.abs(lp_card - lp_cpu) / np.abs(lp_cpu)))
+    wrapper = fns["cuda"][0]
+    wrapper(r5["draws"][:32])
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(50):
+        wrapper(r5["draws"][:32])
+    call_ms = (time.perf_counter() - t1) / 50 * 1e3
+    theta32 = torch.as_tensor(r5["draws"][:32], dtype=torch.float32, device=dev)
+    n_ops = count_dispatches(lambda: fns["cuda"][1](theta32))
+    log(f"[16c posterior] {trained.name}, 17 parameters, QoIs {UQ_QOIS}: card vs CPU at {UQ_CHECK_THETAS} r5 "
+        f"draws, max |diff| / |lp| {post_err:.3e} (tolerance {UQ_POSTERIOR_TOL:g}), lp in "
+        f"[{lp_cpu.min():.4e}, {lp_cpu.max():.4e}]; {call_ms:.3f} ms a call at 32 walkers x 23 conditions, "
+        f"{n_ops} aten operators dispatched a call ({call_ms * 1e3 / n_ops:.2f} us each)")
+    assert post_err <= UQ_POSTERIOR_TOL and np.all(np.isfinite(lp_card)), (post_err, lp_card)
+    rec["posterior"] = {"card_vs_cpu_rel_err": post_err, "tolerance": UQ_POSTERIOR_TOL,
+                        "ms_per_call_32_walkers": call_ms, "aten_ops_per_call": n_ops}
+    del fns, wrapper
+
+    real_build = mcmc.build_device_posterior
+    for sampler, walkers, iters in (("stretch", UQ_STRETCH_WALKERS, UQ_STRETCH_ITERS),
+                                    ("dram", UQ_DRAM_WALKERS, UQ_DRAM_ITERS)):
+        calls: list = []  # (batch rows, seconds) of every log-posterior call
+
+        def counted(*a, **k):
+            np_fn, torch_fn = real_build(*a, **k)
+
+            def timed(theta):
+                t = time.perf_counter()
+                out = np_fn(theta)
+                calls.append((np.shape(theta)[0], time.perf_counter() - t))
+                return out
+
+            return timed, torch_fn
+
+        chain = build / f"{sampler}.npz"
+        chain.unlink(missing_ok=True)
+        mcmc.build_device_posterior = counted
+        try:
+            t1 = time.perf_counter()
+            samples, logps, acc = mcmc.main([str(trained), "--data", "spt100", "--qois", *UQ_QOIS,
+                                             "--sampler", sampler, "--walkers", str(walkers),
+                                             "--niter", str(iters), "--file", str(chain), "--device", "cuda"])
+            wall = time.perf_counter() - t1
+        finally:
+            mcmc.build_device_posterior = real_build
+        sizes = collections.Counter(n for n, _ in calls)
+        in_calls = sum(t for _, t in calls)
+        evals = sum(n for n, _ in calls)
+        back, back_lp = read_mcmc_chain(chain, burn_frac=0.0, clean=False)
+        expect = {walkers // 2} if sampler == "stretch" else {walkers}
+        log(f"[16c {sampler}] {walkers} walkers x {iters} iterations through mcmc.main on the card: "
+            f"{wall:.3f} s in all, {len(calls)} log-posterior calls, batch sizes {dict(sizes)}, "
+            f"{in_calls / len(calls) * 1e3:.3f} ms a call, {evals / in_calls:.0f} walker evaluations/s, "
+            f"acceptance {acc:.3f}; chain {back.shape} read back from {chain.name}")
+        assert calls and set(sizes) - {walkers} <= expect, sizes  # never the per-walker loop
+        assert np.isfinite(samples).all() and np.isfinite(logps).all() and 0.0 < acc < 1.0, acc
+        assert np.array_equal(back, samples) and np.array_equal(back_lp, logps)
+        rec[sampler] = {"walkers": walkers, "iterations": iters, "wall_s": wall, "calls": len(calls),
+                        "ms_per_call": in_calls / len(calls) * 1e3, "walker_evals_per_s": evals / in_calls,
+                        "acceptance": acc}
+
+    # ---- (d) Sobol' over the 18 calibration and nuisance inputs at one pressure
+    card_sys = System.load_from_file(trained, device=dev)
+    sweep = [v for v in card_sys.inputs() if v.category in ("calibration", "nuisance")]
+    names = [v.name for v in sweep]
+    sampler = sobol.column_sampler(sweep)
+    qois = ["T", "I_d", "V_cc", "eta_a"]
+    fn_calls: list = []
+    card_fn = sobol.pressure_fn(card_sys, names, UQ_SOBOL_PB, qois)
+
+    def timed_fn(x):
+        sync()
+        t = time.perf_counter()
+        out = {k: v.cpu() for k, v in card_fn(x).items()}
+        fn_calls.append((len(x), time.perf_counter() - t))
+        return out
+
+    t1 = time.perf_counter()
+    big = sobol_sa(timed_fn, sampler, UQ_SOBOL_N, len(names), seed=16)
+    wall = time.perf_counter() - t1
+    (n_rows, fn_s), = fn_calls
+    assert n_rows == UQ_SOBOL_N * (len(names) + 2), fn_calls
+    small_card = sobol_sa(card_fn, sampler, UQ_SOBOL_CHECK_N, len(names), seed=17)
+    cpu_sys = System.load_from_file(trained, device="cpu")
+    small_cpu = sobol_sa(sobol.pressure_fn(cpu_sys, names, UQ_SOBOL_PB, qois), sampler, UQ_SOBOL_CHECK_N,
+                         len(names), seed=17)
+    sobol_err = max(float(np.max(np.abs(small_card[k] - small_cpu[k]))) for k in ("S1", "ST"))
+    tops = {q: names[int(np.argmax(big["ST"][:, i]))] for i, q in enumerate(big["qois"])}
+    log(f"[16d sobol] {len(names)} inputs, n = {UQ_SOBOL_N} at P_b = {UQ_SOBOL_PB:g}: {n_rows} rows in one "
+        f"batch on the card in {fn_s * 1e3:.2f} ms ({n_rows / fn_s:.0f} evaluations/s; sobol_sa "
+        f"{wall:.3f} s); "
+        f"largest ST {tops}; card vs CPU at n = {UQ_SOBOL_CHECK_N}, max |diff| of S1 and ST {sobol_err:.3e} "
+        f"(tolerance {UQ_SOBOL_TOL:g})")
+    assert all(np.isfinite(big[k]).all() for k in ("S1", "ST")), big
+    assert sobol_err <= UQ_SOBOL_TOL, sobol_err
+    rec["sobol"] = {"inputs": len(names), "n": UQ_SOBOL_N, "rows": n_rows, "fn_ms": fn_s * 1e3,
+                    "evals_per_s": n_rows / fn_s, "sobol_sa_s": wall, "largest_ST": tops,
+                    "card_vs_cpu_max_abs_err": sobol_err, "tolerance": UQ_SOBOL_TOL}
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[16 uq] done ({rec['wall_s']:.2f} s)")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -665,14 +952,10 @@ def main() -> int:
     ps, pp, pa = run(fs.kstep_plain, 1)
     for name, x in (("state", ks), ("prof", kp), ("sacc", ka)):
         assert torch.isfinite(x).all(), f"kernel {name} not finite"
-    pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kp[j], pp[j]) for j in range(kp.shape[0])]
-    pairs += [(ka[:, j], pa[:, j]) for j in range(fs.A_ICIR + 1)]
-    errs = [scaled_err(k, p) for k, p in pairs]
-    max_err = max(errs)
-    max_abs = max(float((k - p).abs().max()) for k, p in pairs)
+    max_err, max_abs, n_arrays = carry_errs(fs, (ks, kp, ka), (ps, pp, pa))
     log(f"[3 parity] 1 launch (K={K}) vs {K} plain steps, B={batch}: max scaled error {max_err:.3e} "
-        f"(tolerance {STATE_RTOL:g}), max absolute error {max_abs:.3e} over {len(pairs)} arrays")
-    assert max_err < STATE_RTOL, errs
+        f"(tolerance {STATE_RTOL:g}), max absolute error {max_abs:.3e} over {n_arrays} arrays")
+    assert max_err < STATE_RTOL, max_err
     ks, kp, ka = run(fs.kstep, 20)
     ps, pp, pa = run(fs.kstep_plain, 20)
     acc_err = max(float(((ka[:, j] - pa[:, j]).abs() / pa[:, j].abs().clamp_min(1e-30)).max())
@@ -682,7 +965,7 @@ def main() -> int:
         f"{acc_err:.3e} (tolerance {QOI_RTOL:g}) ({time.perf_counter() - t0:.2f} s)")
     assert acc_err < QOI_RTOL
     # free phase 3's B = 1024 copies so phase 4's peak memory is the main path's own
-    del params, consts, state0, prof0, sacc0, ks, kp, ka, ps, pp, pa, pairs
+    del params, consts, state0, prof0, sacc0, ks, kp, ka, ps, pp, pa
 
     # ---- 4. main path: CoupledPEM at fidelity (2,2), B = 1024
     t0 = time.perf_counter()
@@ -939,10 +1222,13 @@ def main() -> int:
     lax["system"] = system_phase()
     # ---- 15. the surrogates
     surrogate = surrogate_phase()
+    # ---- 16. the UQ path (on phase 15's saved system)
+    uq = uq_phase(Path("build") / "surrogate" / "surrogate_trained.json")
 
     kernels = [{
         "name": "kstep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches["kstep"], "launches_wrapper_path": wrapper_launches["kstep"],
+        "launches_uq_predictive": uq["predictive"]["kstep_launches"],
         "max_abs_err": max_abs, "max_scaled_err": max_err,
         "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
@@ -961,6 +1247,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"lax": lax}), flush=True)
     print(json.dumps({"surrogate": surrogate}), flush=True)
+    print(json.dumps({"uq": uq}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -376,6 +376,15 @@ class System:
         _not_ported("plot_allocation", "A11b (plots)")
 
     # ------------------------------------------------------------------ io
+    def set_logger(self, stdout: bool = False, level=logging.INFO):
+        """Set the system logger's level; with ``stdout``, add a stream handler
+        (once)."""
+        self.logger.setLevel(level)
+        if stdout and not any(isinstance(h, logging.StreamHandler) for h in self.logger.handlers):
+            handler = logging.StreamHandler()
+            handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s"))
+            self.logger.addHandler(handler)
+
     def save_to_file(self, filename: str, save_dir=None) -> Path:
         from hallthrusterpem_tpu_torch.core.json_loader import save_system
 

@@ -222,3 +222,58 @@ def test_eval_tensor_on_card_matches_cpu(method):
         ref = eval_tensor(*args("cpu"), method=method)
         got = eval_tensor(*args("cuda"), method=method)
         assert got.dtype == dtype and _scaled(got.cpu(), ref) < tol, dtype
+
+
+def test_device_posterior_on_card_matches_cpu():
+    """The pem_v0 device posterior (``scripts/pem_v0/mcmc.build_device_posterior``)
+    on the card against the same function on the CPU: a small MLP surrogate
+    (2 x 32, 2 members, 40 steps) trained on the CPU on smooth synthetic labels
+    of ``pem_v0_SPT-100_compression.json``'s outputs (u_ion and j_ion through
+    their compression maps), the spt100 data with every QoI, M = 4 noise
+    samples, 32 thetas over the priors: each value within 1e-4 of its own; the result
+    stays on the card until the numpy wrapper reads it."""
+    import argparse
+
+    import numpy as np
+
+    from hallthrusterpem_tpu_torch.core.dataset import as_numpy
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+    from hallthrusterpem_tpu_torch.scripts.pem_v0 import mcmc
+    from hallthrusterpem_tpu_torch.surrogate.mlp import MLPSurrogate
+
+    _need_card()
+    cpu = load_system("pem_v0_SPT-100_compression.json", device="cpu")
+    x = as_numpy(cpu.sample_inputs(256, seed=0, use_pdf=["calibration", "nuisance"]))
+    z = np.stack([cpu._variables[k].normalize(x[k]) for k in sorted(x)], -1)
+    z = (z - z.mean(0)) / z.std(0)
+    smooth = np.tanh(z @ np.random.default_rng(0).standard_normal((z.shape[1], 8)) / 4)
+    outputs = {}
+    for i, var in enumerate(cpu.outputs()):
+        if var.compression is not None:
+            lat = 0.05 * smooth[:, np.arange(var.compression.latent_size) % 8]
+            outputs[var.name] = var.denormalize(var.compression.reconstruct(lat))
+        else:
+            outputs[var.name] = (var.nominal or 1.0) * (1 + 0.1 * smooth[:, i % 8])
+    surr = MLPSurrogate(cpu, hidden=(32, 32), ensemble=2, seed=0)
+    surr.fit(x, outputs, steps=40, batch=64, verbose=False)
+    cpu.system_surrogate = surr
+    card = load_system("pem_v0_SPT-100_compression.json", device="cuda")
+    card.system_surrogate = MLPSurrogate.from_state(surr.to_state(), card)
+
+    args = argparse.Namespace(data=["spt100"], qois=["V_cc", "T", "I_d", "u_ion", "j_ion"], noise_samples=4,
+                              field_weight=1.0, id_penalty=2.0, use_model=None)
+    lps = []
+    for system in (cpu, card):
+        calib = [v for v in system.inputs() if v.category == "calibration"]
+        ops, obs, sig, fields = mcmc.build_dataset(system, args)
+        wrapper, fn = mcmc.build_device_posterior(system, args, calib, [v.name for v in calib], ops, obs, sig,
+                                                  fields)
+        dom = np.array([v.get_domain() for v in calib])
+        u = np.random.default_rng(1).uniform(0.1, 0.9, (32, len(calib)))
+        theta = dom[:, 0] + u * (dom[:, 1] - dom[:, 0])
+        out = fn(torch.as_tensor(theta, dtype=torch.float32, device=system.device))
+        assert out.device.type == system.device.type and out.shape == (32,)
+        lps.append(wrapper(theta))
+    ref, got = lps
+    assert np.all(np.abs(ref) < 1e29), ref
+    assert np.all(np.abs(got - ref) <= 1e-4 * np.abs(ref)), (got, ref)

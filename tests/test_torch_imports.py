@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import without JAX, optax, PyYAML, h5py, pandas or
 the JAX package: the machine with the card has none of them. Every module of the
-port is imported, the System layer's and the surrogates' among them."""
+port is imported, the System layer's, the surrogates', the data loaders', UQ's and
+the pem_v0 scripts' among them (scipy is allowed: the card's machine has it)."""
 
 import subprocess
 import sys
@@ -35,9 +36,12 @@ def test_port_imports_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = set(proc.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 36
+    assert len(names) >= 49
     pkg = "hallthrusterpem_tpu_torch."
     assert {pkg + m for m in ("ops.tridiag", "ops.svd", "models.fake_thruster", "core.dataset", "core.variables",
                               "core.component", "core.system", "core.json_loader", "surrogate",
                               "surrogate.knots", "surrogate.misc", "surrogate.interpolate", "surrogate.component",
-                              "surrogate.train", "surrogate.mlp", "surrogate.domain")} <= names
+                              "surrogate.train", "surrogate.mlp", "surrogate.domain",
+                              "data", "data.loader", "uq", "uq.mcmc", "uq.sobol", "uq.montecarlo", "uq.utils",
+                              "scripts", "scripts.pem_v0", "scripts.pem_v0.dataset_util", "scripts.pem_v0.mcmc",
+                              "scripts.pem_v0.monte_carlo", "scripts.pem_v0.sobol")} <= names
