@@ -71,11 +71,22 @@ Phases, each printed with its seconds:
     x ``UQ_STRETCH_ITERS``) and with DRAM (``UQ_DRAM_WALKERS`` x
     ``UQ_DRAM_ITERS``), every log-posterior call on the whole batch, the
     ``.npz`` chain read back equal; (d) ``sobol_sa`` over the 18 calibration and
-    nuisance inputs, ``UQ_SOBOL_N`` x 20 rows in one batch on the card, and the
-    card against the CPU at ``UQ_SOBOL_CHECK_N``.
+    nuisance inputs, ``UQ_SOBOL_N`` x 20 rows in one batch on the card (timed as
+    the least of ``UQ_SOBOL_TIMED_CALLS`` calls after a warm one), and the card
+    against the CPU at ``UQ_SOBOL_CHECK_N``;
+17. the multi-device path on phase 4's inputs (B = 1024) and outputs: (a)
+    ``BatchExecutor(make_mesh())`` over every card of the machine runs
+    ``CoupledPEM``; (b) ``simulate_batch_sharded`` on ``Mesh([cuda:0, cuda:0])``,
+    two shards on one card, then the plume; (c) two processes on the card
+    (``parallel.distributed.initialize``, gloo on a free localhost port), each
+    ``process_local_batch`` of half the rows, then ``gather_to_host``: each
+    equal to phase 4 bit for bit, with ``kstep`` launched once per shard and
+    launch; (d) the host's µs per ``kstep`` launch with 1 and 2 threads
+    enqueuing (``PARALLEL_HOST_LAUNCHES`` each).
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
-line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"kernels": [...]}``
+line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
+line (phase 17), a ``{"kernels": [...]}``
 line, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -154,8 +165,12 @@ UQ_DRAM_ITERS = 500
 UQ_SOBOL_N = 5000
 UQ_SOBOL_CHECK_N = 512
 UQ_SOBOL_TOL = 1e-4
+UQ_SOBOL_TIMED_CALLS = 3
 UQ_SOBOL_PB = 1e-5
 UQ_QOIS = ["V_cc", "T", "I_d", "u_ion", "j_ion"]
+# phase 17: launches each host thread enqueues, the seconds a child process may take
+PARALLEL_HOST_LAUNCHES = 200
+PARALLEL_CHILD_TIMEOUT = 300
 
 
 def log(msg: str) -> None:
@@ -843,14 +858,19 @@ def uq_phase(trained: Path) -> dict:
         sync()
         t = time.perf_counter()
         out = {k: v.cpu() for k, v in card_fn(x).items()}
-        fn_calls.append((len(x), time.perf_counter() - t))
+        fn_calls.append((x, time.perf_counter() - t))
         return out
 
     t1 = time.perf_counter()
     big = sobol_sa(timed_fn, sampler, UQ_SOBOL_N, len(names), seed=16)
     wall = time.perf_counter() - t1
-    (n_rows, fn_s), = fn_calls
-    assert n_rows == UQ_SOBOL_N * (len(names) + 2), fn_calls
+    (rows_x, cold_s), = fn_calls
+    n_rows = len(rows_x)
+    assert n_rows == UQ_SOBOL_N * (len(names) + 2), n_rows
+    # sobol_sa's own call was the warm-up: the least of 3 more calls on its rows
+    for _ in range(UQ_SOBOL_TIMED_CALLS):
+        timed_fn(rows_x)
+    fn_s = min(t for _, t in fn_calls[1:])
     small_card = sobol_sa(card_fn, sampler, UQ_SOBOL_CHECK_N, len(names), seed=17)
     cpu_sys = System.load_from_file(trained, device="cpu")
     small_cpu = sobol_sa(sobol.pressure_fn(cpu_sys, names, UQ_SOBOL_PB, qois), sampler, UQ_SOBOL_CHECK_N,
@@ -858,17 +878,191 @@ def uq_phase(trained: Path) -> dict:
     sobol_err = max(float(np.max(np.abs(small_card[k] - small_cpu[k]))) for k in ("S1", "ST"))
     tops = {q: names[int(np.argmax(big["ST"][:, i]))] for i, q in enumerate(big["qois"])}
     log(f"[16d sobol] {len(names)} inputs, n = {UQ_SOBOL_N} at P_b = {UQ_SOBOL_PB:g}: {n_rows} rows in one "
-        f"batch on the card in {fn_s * 1e3:.2f} ms ({n_rows / fn_s:.0f} evaluations/s; sobol_sa "
-        f"{wall:.3f} s); "
+        f"batch on the card in {fn_s * 1e3:.2f} ms, the least of {UQ_SOBOL_TIMED_CALLS} warm calls (the first, "
+        f"cold, {cold_s * 1e3:.2f} ms) ({n_rows / fn_s:.0f} evaluations/s; sobol_sa {wall:.3f} s); "
         f"largest ST {tops}; card vs CPU at n = {UQ_SOBOL_CHECK_N}, max |diff| of S1 and ST {sobol_err:.3e} "
         f"(tolerance {UQ_SOBOL_TOL:g})")
     assert all(np.isfinite(big[k]).all() for k in ("S1", "ST")), big
     assert sobol_err <= UQ_SOBOL_TOL, sobol_err
     rec["sobol"] = {"inputs": len(names), "n": UQ_SOBOL_N, "rows": n_rows, "fn_ms": fn_s * 1e3,
+                    "cold_fn_ms": cold_s * 1e3,
                     "evals_per_s": n_rows / fn_s, "sobol_sa_s": wall, "largest_ST": tops,
                     "card_vs_cpu_max_abs_err": sobol_err, "tolerance": UQ_SOBOL_TOL}
     rec["wall_s"] = time.perf_counter() - t0
     log(f"[16 uq] done ({rec['wall_s']:.2f} s)")
+    return rec
+
+
+_PARALLEL_CHILD = r"""
+import os, sys, time
+import numpy as np
+import torch
+
+from hallthrusterpem_tpu_torch.parallel import distributed as dist, sharded_call
+from hallthrusterpem_tpu_torch.pem import CoupledPEM
+
+rank, out_dir = int(os.environ["HTPEM_RANK"]), os.environ["HTPEM_DIR"]
+dist.initialize(coordinator_address=os.environ["HTPEM_ADDRESS"], num_processes=2, process_id=rank,
+                local_device_ids=[0])
+assert dist.is_distributed()
+pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=float(os.environ["HTPEM_DURATION"]),
+                 device="cuda")
+with np.load(os.path.join(out_dir, "inputs.npz")) as f:
+    full = {k: f[k] for k in f.files}
+sl = dist.local_batch_slice(len(full["V_a"]))
+mesh = dist.global_mesh()
+walls = []
+for _ in range(2):  # the first run is cold (the kernel library, PyTorch's own kernels)
+    t0 = time.perf_counter()
+    local = dist.process_local_batch({k: v[sl] for k, v in full.items()}, mesh)
+    gathered = dist.gather_to_host(sharded_call(pem, mesh)(local))
+    walls.append(time.perf_counter() - t0)
+np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **gathered)
+torch.distributed.destroy_process_group()
+print(f"RANK{rank}_OK {walls[0]:.6f} {walls[1]:.6f}", flush=True)
+"""
+
+
+def parallel_phase(pem, inputs: dict, ref: dict, n_launch: int, kstep_ms: float) -> dict:
+    """Phase 17: the multi-device path on phase 4's ``inputs`` against its
+    outputs ``ref``, bit for bit; ``n_launch`` is phase 4's launches a run.
+    Returns the ``{"parallel": ...}`` record."""
+    import os
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels, simulate_batch_sharded
+    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from hallthrusterpem_tpu_torch.parallel import BatchExecutor, Mesh, make_mesh
+    from hallthrusterpem_tpu_torch.pem import _coupled_post, _coupled_pre
+
+    t0 = time.perf_counter()
+    batch = len(inputs["V_a"])
+    duration_ms = pem.cfg.duration * 1e3
+    ref_np = {k: v.cpu().numpy() for k, v in ref.items()}
+
+    def unequal(out) -> list:
+        """The outputs that differ from phase 4's in any bit (NaN rows alike)."""
+        got = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in out.items()}
+        assert set(got) == set(ref_np), (sorted(got), sorted(ref_np))
+        return [k for k in ref_np if got[k].dtype != ref_np[k].dtype
+                or not np.array_equal(got[k], ref_np[k], equal_nan=True)]
+
+    def sync_all(mesh):
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+
+    rec: dict = {"batch": batch, "duration_s": pem.cfg.duration}
+
+    # ---- (a) every card of the machine
+    mesh = make_mesh()
+    _kernels.reset_counts()
+    t1 = time.perf_counter()
+    out = BatchExecutor(mesh).run(pem, inputs)
+    sync_all(mesh)
+    wall = time.perf_counter() - t1
+    launches = _kernels.launch_counts["kstep"]
+    diff = unequal(out)
+    log(f"[17a every card] BatchExecutor(make_mesh()) over {mesh.n_devices} card(s), B={batch}: {wall:.3f} s "
+        f"({batch * duration_ms / wall:.2f} sim-ms/s), kstep launches {launches}; outputs that differ from "
+        f"phase 4 in any bit: {diff or 'none'}")
+    assert not diff, diff
+    assert launches == mesh.n_devices * n_launch, (launches, mesh.n_devices, n_launch)
+    rec["every_card"] = {"cards": mesh.n_devices, "wall_s": wall, "sim_ms_per_s": batch * duration_ms / wall,
+                         "kstep_launches": launches, "bit_equal": True}
+
+    # ---- (b) two shards on one card: simulate_batch_sharded, then the plume
+    two = Mesh([torch.device("cuda", 0)] * 2)
+    params, v_cc = _coupled_pre(inputs, pem.cfg)
+    _kernels.reset_counts()
+    t1 = time.perf_counter()
+    sol = simulate_batch_sharded(params, pem.base_B, pem.cfg, two)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _kernels.launch_counts["kstep"]
+    diff = unequal(_coupled_post(inputs, v_cc, sol, pem.sweep_radius, pem.cfg))
+    log(f"[17b two shards] simulate_batch_sharded on Mesh([cuda:0, cuda:0]), 2 x {batch // 2} rows: {wall:.3f} s "
+        f"({batch * duration_ms / wall:.2f} sim-ms/s), kstep launches {launches} (phase 4: {n_launch} a run); "
+        f"outputs that differ from phase 4 in any bit: {diff or 'none'}")
+    assert not diff, diff
+    assert launches == 2 * n_launch, (launches, n_launch)
+    rec["two_shards"] = {"wall_s": wall, "sim_ms_per_s": batch * duration_ms / wall, "kstep_launches": launches,
+                         "bit_equal": True}
+
+    # ---- (c) two processes on the card, gloo over localhost
+    out_dir = Path("build") / "parallel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("rank*.npz"):
+        old.unlink()
+    np.savez(out_dir / "inputs.npz", **{k: v.cpu().numpy() for k, v in inputs.items()})
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t1 = time.perf_counter()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, HTPEM_RANK=str(rank), HTPEM_ADDRESS=f"127.0.0.1:{port}",
+                   HTPEM_DIR=str(out_dir.resolve()), HTPEM_DURATION=repr(pem.cfg.duration))
+        procs.append(subprocess.Popen([sys.executable, "-c", _PARALLEL_CHILD], env=env, cwd=Path(__file__).parent,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    child_walls = []
+    try:
+        for rank, proc in enumerate(procs):
+            text = proc.communicate(timeout=PARALLEL_CHILD_TIMEOUT)[0]
+            assert proc.returncode == 0 and f"RANK{rank}_OK" in text, f"rank {rank} failed:\n{text[-4000:]}"
+            child_walls.append([float(w) for w in text.split(f"RANK{rank}_OK")[1].split()[:2]])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t1
+    diffs = []
+    for rank in range(2):
+        with np.load(out_dir / f"rank{rank}.npz") as f:
+            diffs.append(unequal({k: f[k] for k in f.files}))
+    log(f"[17c two processes] 2 ranks on cuda:0 (gloo, port {port}), {batch // 2} rows each: both ranks "
+        f"gathered {batch} rows; {wall:.3f} s with the processes' start; the sharded run and the gather "
+        f"{max(w for w, _ in child_walls):.3f} s cold, {max(w for _, w in child_walls):.3f} s warm (the slower "
+        f"rank); outputs that differ from phase 4 in any bit: rank 0 {diffs[0] or 'none'}, "
+        f"rank 1 {diffs[1] or 'none'}")
+    assert not diffs[0] and not diffs[1], diffs
+    rec["two_processes"] = {"wall_s": wall, "run_and_gather_cold_s": max(w for w, _ in child_walls),
+                            "run_and_gather_s": max(w for _, w in child_walls), "bit_equal": True}
+
+    # ---- (d) the host's time per kstep launch, with 1 and 2 threads enqueuing
+    K = fs.INNER_STEPS
+    half = batch // 2
+    carries = [fs.init_carry({k: v[i * half:(i + 1) * half].contiguous() for k, v in params.items()},
+                             pem.base_B, pem.cfg) for i in range(2)]
+
+    def enqueue(carry):
+        consts, state, prof, sacc = carry
+        for _ in range(PARALLEL_HOST_LAUNCHES):
+            fs.kstep(state, prof, sacc, consts, 0, K, pem.cfg)
+
+    pace = {}
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for n_threads in (1, 2, 1, 2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for future in [pool.submit(enqueue, c) for c in carries[:n_threads]]:
+                future.result()
+            host_s = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            us = host_s / (n_threads * PARALLEL_HOST_LAUNCHES) * 1e6
+            pace[n_threads] = min(pace.get(n_threads, math.inf), us)
+    log(f"[17d host pace] host µs per kstep launch (B={half}, {PARALLEL_HOST_LAUNCHES} launches a thread, least "
+        f"of 2 tries): 1 thread {pace[1]:.2f}, 2 threads {pace[2]:.2f} (aggregate); at {kstep_ms:.3f} ms a launch "
+        f"one process could keep {kstep_ms * 1e3 / pace[2]:.0f} cards busy at the 2-thread pace "
+        f"({kstep_ms * 1e3 / pace[1]:.0f} at the 1-thread pace)")
+    rec["host_us_per_launch"] = {"1_thread": pace[1], "2_threads": pace[2]}
+    rec["cards_one_process_could_feed"] = kstep_ms * 1e3 / pace[2]
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[17 parallel] done ({rec['wall_s']:.2f} s)")
     return rec
 
 
@@ -982,6 +1176,7 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     launches = dict(_kernels.launch_counts)
+    main_inputs, main_out = inp, out  # phase 17 holds the multi-device path to these, bit for bit
     wall = min(walls)
     thrust = out["T"]
     n_ok = int(torch.isfinite(thrust).sum())
@@ -1224,11 +1419,14 @@ def main() -> int:
     surrogate = surrogate_phase()
     # ---- 16. the UQ path (on phase 15's saved system)
     uq = uq_phase(Path("build") / "surrogate" / "surrogate_trained.json")
+    # ---- 17. the multi-device path (on phase 4's inputs and outputs)
+    parallel = parallel_phase(pem, main_inputs, main_out, n_launch, kstep_ms)
 
     kernels = [{
         "name": "kstep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches["kstep"], "launches_wrapper_path": wrapper_launches["kstep"],
         "launches_uq_predictive": uq["predictive"]["kstep_launches"],
+        "launches_two_shards": parallel["two_shards"]["kstep_launches"],
         "max_abs_err": max_abs, "max_scaled_err": max_err,
         "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
@@ -1248,6 +1446,7 @@ def main() -> int:
     print(json.dumps({"lax": lax}), flush=True)
     print(json.dumps({"surrogate": surrogate}), flush=True)
     print(json.dumps({"uq": uq}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,8 +7,8 @@ CUDA device unless the caller passes ``device="cpu"``). ``predict(use_model=None
 runs the trained surrogates instead: the system-level MLP ensemble
 (``system_surrogate``) when one is set, else each component's MISC surrogate
 where it has one. ``fit`` trains the MISC surrogates, ``as_torch_fn`` returns the
-surrogate chain as a pure function on tensors. The plots are not ported yet:
-they raise, naming their ROADMAP.md item.
+surrogate chain as a pure function on tensors. ``plot_slice`` and
+``plot_allocation`` draw through :mod:`hallthrusterpem_tpu_torch.viz`.
 """
 
 from __future__ import annotations
@@ -35,10 +35,6 @@ class _Graph:
     def __init__(self):
         self.nodes: dict[str, dict] = {}
         self.edges: list[tuple[str, str]] = []
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"System.{what} is not ported to the PyTorch package yet ({item} in ROADMAP.md)")
 
 
 class System:
@@ -368,12 +364,16 @@ class System:
         overhead = sum(h.get("overhead_s", 0.0) for h in self.train_history)
         return cost_alloc, model_cost, overhead, model_evals
 
-    # ------------------------------------------------------------------ not ported yet
+    # ------------------------------------------------------------------ plotting (thin)
     def plot_slice(self, *args, **kwargs):
-        _not_ported("plot_slice", "A11b (plots)")
+        from hallthrusterpem_tpu_torch.viz import plot_slice
+
+        return plot_slice(self, *args, **kwargs)
 
     def plot_allocation(self, *args, **kwargs):
-        _not_ported("plot_allocation", "A11b (plots)")
+        from hallthrusterpem_tpu_torch.viz import plot_allocation
+
+        return plot_allocation(self, *args, **kwargs)
 
     # ------------------------------------------------------------------ io
     def set_logger(self, stdout: bool = False, level=logging.INFO):

@@ -391,3 +391,10 @@ class Variable:
 
     def __str__(self):
         return self.name
+
+    def get_tex(self, units: bool = False, symbol: bool = True) -> str:
+        """Axis label: the TeX symbol (else the name), with the units in brackets."""
+        label = self.tex if (symbol and self.tex) else self.name
+        if units and self.units:
+            label = f"{label} [{self.units}]"
+        return label

@@ -1,8 +1,6 @@
 """Experimental-data loading for Hall-thruster PEMs (the JAX package's ``data``):
 the CSV loader of :mod:`.loader` and the bundled SPT-100 datasets, the port's own
 copies under ``data/spt100/`` (provenance in its ``README.md``).
-
-``pem_to_xarray`` is not ported: it needs xarray (ROADMAP.md A11b).
 """
 
 from pathlib import Path as _Path
@@ -22,6 +20,7 @@ from hallthrusterpem_tpu_torch.data.loader import (
     load_multiple_datasets,
     load_single_dataset,
     pem_to_dataentries,
+    pem_to_xarray,
 )
 
 #: the bundled SPT-100 experimental datasets (literature reconstructions)
@@ -60,4 +59,5 @@ __all__ = [
     "load_ht_datasets",
     "data_to_arrays",
     "pem_to_dataentries",
+    "pem_to_xarray",
 ]

@@ -35,6 +35,7 @@ __all__ = [
     "load_ht_datasets",
     "data_to_arrays",
     "pem_to_dataentries",
+    "pem_to_xarray",
 ]
 
 # ---------------------------------------------------------------------------------
@@ -334,4 +335,27 @@ def pem_to_dataentries(operating_conditions, outputs, sweep_radii=None, use_corr
                 val=np.asarray(outputs["j_ion"])[i], unit="A/m^2", coords=coords
             )
         entries.append(DataEntry(operating_condition=dict(opcond), data=fields))
+    return entries
+
+
+def pem_to_xarray(operating_conditions, outputs, sweep_radii=None, use_corrected_thrust=True):
+    """:func:`pem_to_dataentries` with each field's values as an
+    ``xarray.DataArray`` over its coordinates; plain arrays where xarray is not
+    installed (xarray is imported here, not with the module)."""
+    entries = pem_to_dataentries(operating_conditions, outputs, sweep_radii, use_corrected_thrust)
+    try:
+        import xarray as xr
+    except ImportError:
+        return entries
+    for e in entries:
+        for name, f in e.data.items():
+            if f.coords:
+                dims = list(f.coords)
+                coords = {d: np.atleast_1d(f.coords[d]) for d in dims}
+                val = np.asarray(f.val)
+                if name == "ion current density" and "r" in coords and val.ndim == 1:
+                    val = val[None, :] if len(coords["r"]) == 1 else val
+                f.val = xr.DataArray(val, coords=coords, dims=dims[: val.ndim])
+            else:
+                f.val = xr.DataArray(f.val)
     return entries

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from hallthrusterpem_tpu_torch.constants import TORR_2_PA
-from hallthrusterpem_tpu_torch.ops.integrate import simpson_weights
+from hallthrusterpem_tpu_torch.ops.integrate import simpson, simpson_weights
 from hallthrusterpem_tpu_torch.ops.special import exp_neg_asq_re_erfi, exp_neg_sq_erfi
 
 __all__ = ["current_density"]
@@ -72,7 +72,7 @@ def current_density(inputs: dict, sweep_radius: float = 1.0) -> dict:
     j_non_cex = torch.flip(j_beam + j_scat, dims=(-1,))
     den_igd = j_non_cex * torch.cos(alpha_rad)
     num_igd = den_igd * torch.sin(alpha_rad)
-    cos_div = (num_igd @ w) / (den_igd @ w)
+    cos_div = simpson(num_igd, weights=w) / simpson(den_igd, weights=w)
     cos_div = torch.where(torch.isfinite(cos_div), cos_div, torch.nan)
     div_angle = torch.arccos(torch.clamp(cos_div, -1.0, 1.0))
 

@@ -9,7 +9,8 @@ NaN-row failure masks. One call solves a whole batch: any config value may be a
 ``device="cpu"``. :func:`dispatch_solver` picks the solver from the config: the
 K-step CUDA kernel on a CUDA device, its plain PyTorch version on the CPU
 (:mod:`.fused_step`), and past 254 cells or in float64 the lax solver
-(:mod:`.solver`) on either.
+(:mod:`.solver`) on either. :func:`simulate_batch_sharded` runs the same
+dispatch on every shard of a device mesh.
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ from hallthrusterpem_tpu_torch.utils import resolve_device
 #: the component's data-exchange type: name -> tensor
 Dataset = Dict[str, torch.Tensor]
 
-__all__ = ["hallthruster_jl", "run_simulation", "run_hallthruster_jl", "PEM_TO_JULIA",
-           "SolverConfig", "Dataset"]
+__all__ = ["hallthruster_jl", "run_simulation", "run_hallthruster_jl", "simulate_batch_sharded",
+           "PEM_TO_JULIA", "SolverConfig", "Dataset"]
 
 
 def _load_bfield(thr: dict, cfg: SolverConfig) -> np.ndarray:
@@ -187,6 +188,30 @@ def dispatch_solver(params: dict, base_B, cfg: SolverConfig, chunk_steps: int = 
     if chunk_steps and cfg.num_steps > chunk_steps and cfg.num_save == 0:
         return solver.simulate_batch_chunked(params, base_B, cfg, chunk_steps=chunk_steps)
     return solver.simulate_batch(params, base_B, cfg)
+
+
+def simulate_batch_sharded(params: dict, base_B, cfg: SolverConfig, mesh, axis_name: str = "batch",
+                           chunk_steps: int = 0) -> dict:
+    """Run the discharge solve over a device mesh, batch axis sharded (the
+    counterpart of the JAX package's multi-chip path).
+
+    Each shard runs :func:`dispatch_solver` on its own device: the K-step kernel
+    per shard on CUDA, its plain version on the CPU, the lax solver past 254
+    cells or in float64. The solve has no traffic between samples, so the
+    outputs, concatenated in batch order on ``mesh.devices[0]``, are those of
+    the unsharded run. JAX's ``backend`` and ``interpret`` arguments have no
+    counterpart: the dispatcher picks the solver from ``cfg`` and the device.
+    ``cfg`` is the whole batch's (its ``dt`` is the smallest over the batch), so
+    every shard steps alike; ``base_B`` is copied to each device.
+
+    :param params: per-sample parameter dict; every leaf ``(B, ...)`` with B a
+        multiple of the mesh's ``axis_name`` size (else ``ValueError``)
+    :param mesh: a :class:`~hallthrusterpem_tpu_torch.parallel.mesh.Mesh`
+    """
+    from hallthrusterpem_tpu_torch.parallel.mesh import sharded_call
+
+    solve = lambda p, b: dispatch_solver(p, b, cfg, chunk_steps=chunk_steps)
+    return sharded_call(solve, mesh, axis_name)(params, torch.as_tensor(base_B, dtype=torch.float32))
 
 
 def run_simulation(json_input, device=None, **_compat) -> dict:

@@ -10,6 +10,10 @@ minutes. Pointers come from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``; each launch returns the CUDA error
 code, and the wrapper raises if it is not 0. There is no fallback: on a CUDA
 tensor the wrapper launches the kernel or raises.
+
+The wrappers may be called from several host threads at once (one per device of
+a ``parallel.mesh.Mesh``): the launch counts and the per-device constants are
+updated under a lock, and each launch passes its own copy of the config struct.
 """
 
 from __future__ import annotations
@@ -57,13 +61,21 @@ build_info: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
+#: guards ``launch_counts`` and ``_coef_cache`` against concurrent launching threads
+_state_lock = threading.Lock()
 #: (propellant, ncharge, device) -> the rate coefficients on that device
 _coef_cache: dict = {}
 
 
 def reset_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _state_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def _count(name: str) -> None:
+    with _state_lock:
+        launch_counts[name] += 1
 
 
 class KParams(ctypes.Structure):
@@ -241,13 +253,15 @@ def _cached_params(cfg: SolverConfig) -> KParams:
 
 
 def _constants(cfg: SolverConfig, dev: torch.device):
-    """The kernel's config struct (the last few configs are kept) and the rate
-    coefficients on ``dev`` (kept per propellant, charge-state count and device,
-    the only inputs of the fits)."""
+    """A copy of the kernel's config struct, for this launch alone (the last few
+    configs are kept), and the rate coefficients on ``dev`` (kept per
+    propellant, charge-state count and device, the only inputs of the fits)."""
     ckey = (cfg.propellant, cfg.ncharge, dev)
-    if ckey not in _coef_cache:
-        _coef_cache[ckey] = torch.as_tensor(rate_coefficients(cfg), device=dev)
-    return _cached_params(cfg), _coef_cache[ckey]
+    with _state_lock:
+        if ckey not in _coef_cache:
+            _coef_cache[ckey] = torch.as_tensor(rate_coefficients(cfg), device=dev)
+        coef = _coef_cache[ckey]
+    return KParams.from_buffer_copy(_cached_params(cfg)), coef
 
 
 def kstep_cuda(state, prof, sacc, consts: dict, i0: int, K: int, cfg: SolverConfig) -> None:
@@ -279,7 +293,7 @@ def kstep_cuda(state, prof, sacc, consts: dict, i0: int, K: int, cfg: SolverConf
             consts["scalars"].data_ptr(), coef.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"kstep kernel launch failed with CUDA error {rc}")
-    launch_counts["kstep"] += 1
+    _count("kstep")
 
 
 def step_cuda(state, extras, consts: dict, cfg: SolverConfig) -> None:
@@ -306,4 +320,4 @@ def step_cuda(state, extras, consts: dict, cfg: SolverConfig) -> None:
             consts["scalars"].data_ptr(), coef.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"step kernel launch failed with CUDA error {rc}")
-    launch_counts["step"] += 1
+    _count("step")

@@ -1,8 +1,10 @@
-"""Composite-Simpson weights on a static grid (the JAX package's ``ops/integrate.py``)."""
+"""Composite-Simpson and trapezoid weights on a static grid, and the Simpson
+integral with them (the JAX package's ``ops/integrate.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def simpson_weights(x: np.ndarray) -> np.ndarray:
@@ -36,4 +38,27 @@ def simpson_weights(x: np.ndarray) -> np.ndarray:
         w[-1] += (2 * h1**2 + 3 * h0 * h1) / (6 * (h0 + h1))
         w[-2] += (h1**2 + 3 * h1 * h0) / (6 * h0)
         w[-3] -= h1**3 / (6 * h0 * (h0 + h1))
+    return w
+
+
+def simpson(y: torch.Tensor, x=None, weights=None, axis: int = -1) -> torch.Tensor:
+    """Integrate ``y`` along ``axis`` with precomputed or on-the-fly Simpson
+    weights. Each integral is the sum over its own row of ``y * weights``, so a
+    row's value does not depend on how many rows the call holds (a BLAS
+    matrix-vector product picks its kernel, and its rounding, by the batch)."""
+    if weights is None:
+        if x is None:
+            raise ValueError("provide x or weights")
+        weights = simpson_weights(np.asarray(x))
+    w = torch.as_tensor(weights, dtype=y.dtype, device=y.device)
+    return torch.sum(torch.movedim(y, axis, -1) * w, dim=-1)
+
+
+def trapz_weights(x: np.ndarray) -> np.ndarray:
+    """Trapezoid-rule weights for samples at (possibly non-uniform) points ``x``."""
+    x = np.asarray(x, dtype=np.float64)
+    w = np.zeros_like(x)
+    dx = np.diff(x)
+    w[:-1] += dx / 2
+    w[1:] += dx / 2
     return w

@@ -50,6 +50,16 @@ def wofz_parts(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     return wr, wi
 
 
+def wofz(z) -> torch.Tensor:
+    """Faddeeva function ``w(z) = exp(-z^2) erfc(-iz)`` for ``Im(z) >= 0``: complex
+    in and out (a real tensor is taken as the real axis)."""
+    z = torch.as_tensor(z)
+    if not z.is_complex():
+        z = torch.complex(z, torch.zeros_like(z))
+    wr, wi = wofz_parts(z.real, z.imag)
+    return torch.complex(wr, wi)
+
+
 def dawson(x: torch.Tensor) -> torch.Tensor:
     """Dawson integral ``F(x) = exp(-x^2) int_0^x exp(t^2) dt`` for real ``x``."""
     ax = torch.abs(x)

@@ -109,9 +109,15 @@ class CoupledPEM(torch.nn.Module):
         kernel path at up to 254 cells in float32, which launches the time loop K
         steps at a time and ignores ``chunk_steps`` as the JAX package's kernel
         branch does; the lax solver otherwise, whose time loop ``chunk_steps``
-        splits into segments of that many steps (the same numbers)."""
-        inputs = {k: torch.as_tensor(v, dtype=torch.float32, device=self.device)
-                  for k, v in inputs.items()}
+        splits into segments of that many steps (the same numbers).
+
+        Inputs that are tensors on a device of the module's type stay on their
+        device, so each shard of a device mesh runs on its own card; anything
+        else goes to the module's device."""
+        first = next(iter(inputs.values()))
+        on_kind = isinstance(first, torch.Tensor) and first.device.type == self.device.type
+        device = first.device if on_kind else self.device
+        inputs = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in inputs.items()}
         solver_params, v_cc = _coupled_pre(inputs, self.cfg)
         sol = dispatch_solver(solver_params, self.base_B, self.cfg, chunk_steps=chunk_steps or 0)
         return _coupled_post(inputs, v_cc, sol, self.sweep_radius, self.cfg)

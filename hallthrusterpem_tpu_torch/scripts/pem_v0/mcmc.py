@@ -17,8 +17,10 @@ Usage:
   python -m hallthrusterpem_tpu_torch.scripts.pem_v0.mcmc pem_v0_SPT-100_trained.json \\
       --data spt100 --qois V_cc T I_d u_ion j_ion --sampler stretch --walkers 64 --niter 20000
 (with no --data, a synthetic dataset is generated from the model at nominal
-calibration values, a self-consistency check). The corner and predictive plots
-are not ported (ROADMAP.md A11b).
+calibration values, a self-consistency check). After the chain, the corner plot
+``mcmc_corner.png`` and the posterior predictive ``mcmc_predictive.png`` are
+saved into the working directory where matplotlib is installed (best-effort:
+without it the plots are skipped with a note).
 """
 
 from __future__ import annotations
@@ -377,8 +379,61 @@ def main(argv=None):
     print("posterior mean:", dict(zip(names, np.round(flat.mean(axis=0), 6))))
     print("posterior std: ", dict(zip(names, np.round(flat.std(axis=0), 6))))
     print("IAC:", np.round(np.atleast_1d(tau), 1), " ESS:", np.round(np.atleast_1d(ess(flat)), 0))
-    print(f"chain appended to {args.file}; the corner and predictive plots are not ported (ROADMAP.md A11b)")
+    print(f"chain appended to {args.file}")
+
+    try:
+        from hallthrusterpem_tpu_torch.viz import ndscatter
+
+        ndscatter(flat[:: max(1, len(flat) // 5000)], labels=names, save_path="mcmc_corner.png")
+        print("saved mcmc_corner.png")
+        journal_plots(system, args, names, flat, ops, obs, sig)
+        print("saved mcmc_predictive.png")
+    except Exception as e:  # plotting is best-effort, as in the JAX package
+        print("plots skipped:", e)
     return samples, logps, acc
+
+
+def journal_plots(system, args, names, flat, ops, obs, sig, n_draws: int = 200):
+    """Posterior-predictive QoIs against background pressure beside the data:
+    ``n_draws`` chain rows x 12 pressures in ONE batched ``System.predict`` on
+    the system's device, then the 5-95% band and median of each scalar QoI."""
+    from hallthrusterpem_tpu_torch.viz import _pyplot
+
+    plt = _pyplot()
+    rng = np.random.default_rng(0)
+    draws = flat[rng.integers(0, len(flat), n_draws)]
+    pressures = np.geomspace(max(ops["P_b"].min() * 0.5, 1e-7), ops["P_b"].max() * 2, 12)
+
+    qois = [q for q in obs if np.ndim(obs[q]) == 1]
+    nP = len(pressures)
+    batch = {}
+    for v in system.inputs():
+        if v.name == "P_b":
+            batch[v.name] = np.tile(pressures, n_draws)
+        elif v.name in ops:
+            batch[v.name] = np.full(n_draws * nP, float(np.median(ops[v.name])))
+        elif v.name in names:
+            batch[v.name] = np.repeat(draws[:, names.index(v.name)], nP)
+        else:
+            batch[v.name] = np.full(n_draws * nP, _nominal(v))
+    out = system.predict(batch, use_model=args.use_model, qoi_ind=qois)
+
+    fig, axes = plt.subplots(1, len(qois), figsize=(3.2 * len(qois), 2.8), squeeze=False)
+    for ax, q in zip(axes[0], qois):
+        preds = np.asarray(to_numpy(out[q]), dtype=float).reshape(n_draws, nP)
+        lo, mid, hi = np.nanpercentile(preds, [5, 50, 95], axis=0)
+        ax.fill_between(pressures, lo, hi, alpha=0.3, color="0.5")
+        ax.plot(pressures, mid, "-k", lw=1)
+        mask = np.isfinite(obs[q])
+        ax.errorbar(ops["P_b"][mask], obs[q][mask], yerr=2 * sig[q][mask], fmt="o", ms=4,
+                    color="r", label="data")
+        ax.set_xscale("log")
+        ax.set_xlabel("background pressure (Torr)")
+        ax.set_ylabel(q)
+        ax.legend(fontsize=7)
+    fig.tight_layout()
+    fig.savefig("mcmc_predictive.png", dpi=120)
+    plt.close(fig)
 
 
 if __name__ == "__main__":

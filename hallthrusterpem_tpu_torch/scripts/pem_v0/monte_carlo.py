@@ -8,8 +8,9 @@ Usage:
   python -m hallthrusterpem_tpu_torch.scripts.pem_v0.monte_carlo pem_v0_SPT-100_trained.json \\
       --data spt100 -n 64 --posterior chain.npz --compare-model
 Medians and percentiles are numpy's, on the host (``torch.nanmedian`` would
-take the lower middle value of an even count). ``--plots`` is not ported
-(ROADMAP.md A11b).
+take the lower middle value of an even count). ``--plots`` (with ``--data``)
+saves the predictive figures and the surrogate slices into the working
+directory; it needs matplotlib.
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ parser.add_argument("--posterior", default=None, help=".npz MCMC chain to sample
 parser.add_argument("--qois", nargs="*", default=["V_cc", "T", "I_d", "I_B0", "eta_a"])
 parser.add_argument("--allocation", action="store_true",
                     help="print the MISC cost allocation of a trained surrogate")
+parser.add_argument("--plots", action="store_true",
+                    help="save predictive figures: per-QoI 5-95%% bands against background pressure with "
+                         "the experimental error bars, u_ion(z) and j_ion(theta) bands against the data, "
+                         "and slice plots of the trained surrogate")
 parser.add_argument("--out", default="mc_results.npz",
                     help="the pressure sweep's outputs, as arrays 'P_b_<p>/<output>'")
 parser.add_argument("--device", default=None, help="torch device of the system (default: the CUDA card)")
@@ -170,7 +175,99 @@ def run_experimental_comparison(system, args, posterior, calib_names, draws=None
             result["field_rel_l2"][q][src] = errs
             if errs:
                 print(f"rel-L2 {src} vs data (mean over conditions): {np.mean(errs):.3e}")
+
+    if args.plots:
+        tag = "_post" if posterior is not None else "_prior"
+        saved = save_predictive_plots(system, args, ops, obs, sig, fields, preds, Nmc, n_ops, tag)
+        saved += save_surrogate_slices(system, args)
+        print("saved figures:", ", ".join(saved))
     return result
+
+
+def save_predictive_plots(system, args, ops, obs, sig, fields, preds, Nmc, n_ops, tag="") -> list:
+    """Predictive figures against the experimental data: for each scalar QoI the
+    5-95% band and median over background pressure with 2-sigma error bars;
+    u_ion(z) / j_ion(theta) bands at each measured condition. Returns the file
+    names written."""
+    from hallthrusterpem_tpu_torch.viz import _pyplot, ax_default
+
+    plt = _pyplot()
+    saved = []
+    pb = np.asarray(ops["P_b"], dtype=float)
+    for q in [q for q in args.qois if q in obs]:
+        mask = np.isfinite(obs[q])
+        if not mask.any():
+            continue
+        fig, axes = plt.subplots(1, len(preds), figsize=(4.2 * len(preds), 3.2), squeeze=False)
+        for ax, (src, pred) in zip(axes[0], preds.items()):
+            p = np.asarray(to_numpy(pred[q]), dtype=float).reshape(Nmc, n_ops)[:, mask]
+            x = pb[mask]
+            idx = np.argsort(x)
+            p5, med, p95 = np.nanpercentile(p, [5, 50, 95], axis=0)
+            ax.fill_between(x[idx], p5[idx], p95[idx], alpha=0.25, color="0.4", label=f"{src} 5-95%")
+            ax.plot(x[idx], med[idx], "-k", lw=1.2, label=f"{src} median")
+            ax.errorbar(x[idx], obs[q][mask][idx], yerr=2 * sig[q][mask][idx], fmt="o",
+                        ms=4, capsize=3, mfc="none", color="r", label="experiment")
+            ax.set_xscale("log")
+            ax_default(ax, "Background pressure (Torr)", q, legend=True)
+        fig.tight_layout()
+        name = f"mc_{q}{tag}.png"
+        fig.savefig(name, dpi=130)
+        plt.close(fig)
+        saved.append(name)
+
+    for q, specs in fields.items():
+        n_meas = sum(s is not None for s in specs)
+        if n_meas == 0:
+            continue
+        ncols = min(n_meas, 4)
+        nrows = (n_meas + ncols - 1) // ncols
+        fig, axes = plt.subplots(nrows, ncols, figsize=(3.6 * ncols, 2.9 * nrows), squeeze=False)
+        flat_axes = [ax for row in axes for ax in row]
+        for src, pred in preds.items():
+            prof, grid = field_profiles(system, pred, q)
+            prof = prof.reshape(Nmc, n_ops, -1)
+            grid = grid.reshape(Nmc, n_ops, -1)
+            i_ax = 0
+            for k, spec in enumerate(specs):
+                if spec is None:
+                    continue
+                ax = flat_axes[i_ax]
+                g = grid[0, k]
+                p5, med, p95 = np.nanpercentile(prof[:, k, :], [5, 50, 95], axis=0)
+                ax.fill_between(g, p5, p95, alpha=0.2, color="0.4")
+                ax.plot(g, med, "-" if src == "surrogate" else "--", c="k", lw=1.2, label=src)
+                if src == list(preds)[0]:
+                    ax.errorbar(spec["coords"], spec["vals"], yerr=2 * spec["stds"], fmt="o",
+                                ms=3, capsize=2, mfc="none", color="r", label="experiment")
+                ax.set_title(f"V_a={ops['V_a'][k]:.0f} V, P_b={ops['P_b'][k]:.1e} Torr", fontsize=8)
+                ax_default(ax, "angle (rad)" if q == "j_ion" else "z (m)", q, legend=(i_ax == 0))
+                if q == "j_ion":
+                    ax.set_yscale("log")
+                i_ax += 1
+        for ax in flat_axes[n_meas:]:
+            ax.set_visible(False)
+        fig.tight_layout()
+        name = f"mc_{q}{tag}.png"
+        fig.savefig(name, dpi=130)
+        plt.close(fig)
+        saved.append(name)
+    return saved
+
+
+def save_surrogate_slices(system, args) -> list:
+    """1-D slice plots over the first four calibration inputs, model against the
+    trained surrogate (best-effort: a failure is logged and nothing is saved)."""
+    inputs = [v.name for v in system.inputs() if v.category == "calibration"][:4]
+    if not inputs:
+        return []
+    qois = [q for q in args.qois if q in {v.name for v in system.outputs()}][:3]
+    try:
+        system.plot_slice(inputs, qois, show_model=["best"], num_steps=12, save_path="mc_surrogate_slices.png")
+    except Exception as err:  # slice plotting is best-effort, as in the JAX package
+        system.logger.warning("surrogate slice plot skipped: %s", err, exc_info=True)
+        return []
+    return ["mc_surrogate_slices.png"]
 
 
 def _save_npz(path, arrays: dict):

@@ -100,6 +100,33 @@ def test_simpson_weights_match(n):
     np.testing.assert_array_equal(integrate.simpson_weights(x), jint.simpson_weights(x))
 
 
+@pytest.mark.parametrize("n,axis", [(7, -1), (91, -1), (100, 0)])
+def test_simpson_and_trapz_weights_match(n, axis):
+    rng = np.random.default_rng(n)
+    x = np.sort(rng.uniform(0, 2, n))
+    np.testing.assert_array_equal(integrate.trapz_weights(x), jint.trapz_weights(x))
+    y = rng.normal(size=(3, n) if axis == -1 else (n, 3)).astype(np.float32)
+    ref = np.asarray(jint.simpson(y, x=x, axis=axis))
+    got = integrate.simpson(t(y), x=x, axis=axis)
+    assert got.dtype == torch.float32 and got.shape == ref.shape == (3,)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=1e-6)
+    w = jint.simpson_weights(x)
+    np.testing.assert_allclose(integrate.simpson(t(y), weights=w, axis=axis).numpy(),
+                               np.asarray(jint.simpson(y, weights=w, axis=axis)), rtol=RTOL, atol=1e-6)
+    with pytest.raises(ValueError, match="provide x or weights"):
+        integrate.simpson(t(y))
+
+
+def test_wofz_matches():
+    rng = np.random.default_rng(4)
+    z = (rng.uniform(-6, 6, 200) + 1j * rng.uniform(0, 6, 200)).astype(np.complex64)
+    got = special.wofz(torch.as_tensor(z))
+    assert got.is_complex()
+    np.testing.assert_allclose(got.numpy(), np.asarray(jspecial.wofz(z)), rtol=RTOL, atol=1e-6)
+    x = rng.uniform(-6, 6, 50).astype(np.float32)
+    np.testing.assert_allclose(special.wofz(t(x)).numpy(), np.asarray(jspecial.wofz(x)), rtol=RTOL, atol=1e-6)
+
+
 def test_interp1d_matches():
     rng = np.random.default_rng(3)
     xp = np.sort(rng.uniform(0, 1, 40)).astype(np.float32)

@@ -155,3 +155,5 @@ def test_pem_to_dataentries_matches_jax():
         _assert_entries_equal(T.pem_to_dataentries(ops, outputs, **kw), ref)
         tensors = {k: torch.as_tensor(v) for k, v in outputs.items()}
         _assert_entries_equal(T.pem_to_dataentries(ops, tensors, **kw), ref)
+        # without xarray both packages' pem_to_xarray return the same plain entries
+        _assert_entries_equal(T.pem_to_xarray(ops, tensors, **kw), J.pem_to_xarray(ops, outputs, **kw))

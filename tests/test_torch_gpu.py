@@ -277,3 +277,55 @@ def test_device_posterior_on_card_matches_cpu():
     ref, got = lps
     assert np.all(np.abs(ref) < 1e29), ref
     assert np.all(np.abs(got - ref) <= 1e-4 * np.abs(ref)), (got, ref)
+
+
+def _main_path_on_card(batch=64, duration=2e-6):
+    pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=duration, device="cuda")
+    x = default_coupled_inputs(batch, torch.Generator().manual_seed(4), spread=0.08, device="cuda")
+    return pem, x, pem(x)
+
+
+def _bit_equal(got: dict, ref: dict) -> list:
+    """The outputs of ``got`` that differ from ``ref`` in any bit (NaN rows alike)."""
+    import numpy as np
+
+    assert set(got) == set(ref)
+    return [k for k in ref if got[k].dtype != ref[k].dtype
+            or not np.array_equal(got[k].cpu().numpy(), ref[k].cpu().numpy(), equal_nan=True)]
+
+
+def test_batch_executor_every_card_bit_equal():
+    """``BatchExecutor(make_mesh())`` over every card of the machine runs the
+    coupled PEM with the outputs of the unsharded run, bit for bit, and one
+    ``kstep`` launch per card and block of steps."""
+    import math
+
+    from hallthrusterpem_tpu_torch.parallel import BatchExecutor, make_mesh
+
+    _need_card()
+    pem, x, ref = _main_path_on_card()
+    mesh = make_mesh()
+    before = _kernels.launch_counts["kstep"]
+    got = BatchExecutor(mesh).run(pem, x)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["kstep"] == before + mesh.n_devices * math.ceil(pem.cfg.num_steps / 50)
+    assert got["T"].device == mesh.devices[0]
+    assert not _bit_equal(got, ref)
+
+
+def test_two_shards_on_one_card_bit_equal():
+    """``simulate_batch_sharded`` on ``Mesh([cuda:0, cuda:0])``: two shards run in
+    turn on one card, twice the launches, the unsharded run's bits."""
+    import math
+
+    from hallthrusterpem_tpu_torch.models.thruster import simulate_batch_sharded
+    from hallthrusterpem_tpu_torch.parallel import Mesh
+
+    _need_card()
+    pem, x, ref = _main_path_on_card()
+    params, v_cc = _coupled_pre(x, pem.cfg)
+    before = _kernels.launch_counts["kstep"]
+    sol = simulate_batch_sharded(params, pem.base_B, pem.cfg, Mesh([torch.device("cuda", 0)] * 2))
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["kstep"] == before + 2 * math.ceil(pem.cfg.num_steps / 50)
+    assert not _bit_equal(_coupled_post(x, v_cc, sol, pem.sweep_radius, pem.cfg), ref)

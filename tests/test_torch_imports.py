@@ -1,7 +1,8 @@
-"""The port and chip_smoke.py import without JAX, optax, PyYAML, h5py, pandas or
-the JAX package: the machine with the card has none of them. Every module of the
-port is imported, the System layer's, the surrogates', the data loaders', UQ's and
-the pem_v0 scripts' among them (scipy is allowed: the card's machine has it)."""
+"""The port and chip_smoke.py import without JAX, optax, PyYAML, h5py, pandas,
+matplotlib or the JAX package: the machine with the card has none of them. Every
+module of the port is imported, the System layer's, the surrogates', the data
+loaders', UQ's, the scripts', the plots' and the parallel layer's among them
+(scipy is allowed: the card's machine has it)."""
 
 import subprocess
 import sys
@@ -11,7 +12,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "optax", "yaml", "h5py", "pandas", "hallthrusterpem_tpu")
+BLOCKED = ("jax", "jaxlib", "optax", "yaml", "h5py", "pandas", "matplotlib", "hallthrusterpem_tpu")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -36,7 +37,7 @@ def test_port_imports_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = set(proc.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 49
+    assert len(names) >= 55
     pkg = "hallthrusterpem_tpu_torch."
     assert {pkg + m for m in ("ops.tridiag", "ops.svd", "models.fake_thruster", "core.dataset", "core.variables",
                               "core.component", "core.system", "core.json_loader", "surrogate",
@@ -44,4 +45,6 @@ def test_port_imports_without_jax():
                               "surrogate.train", "surrogate.mlp", "surrogate.domain",
                               "data", "data.loader", "uq", "uq.mcmc", "uq.sobol", "uq.montecarlo", "uq.utils",
                               "scripts", "scripts.pem_v0", "scripts.pem_v0.dataset_util", "scripts.pem_v0.mcmc",
-                              "scripts.pem_v0.monte_carlo", "scripts.pem_v0.sobol")} <= names
+                              "scripts.pem_v0.monte_carlo", "scripts.pem_v0.sobol", "scripts.run_mcmc",
+                              "scripts.continue_mcmc", "viz", "parallel", "parallel.mesh",
+                              "parallel.distributed")} <= names

@@ -267,7 +267,7 @@ def test_load_system_paths(tmp_path, monkeypatch):
 def test_component_get_cost_and_unported_methods(fake_system, tmp_path):
     """Costs recorded by ``call_model``; the surrogate side (A9) answers: the
     allocation counts the evaluations, ``as_jax_fn`` needs trained surrogates, a
-    missing training cache is not found; the plots still raise, naming A11b."""
+    missing training cache is not found; the plots draw through ``viz``."""
     s = fake_system
     s.predict(s.sample_inputs(8, seed=0), use_model="best")
     comp = s["Thruster"]
@@ -278,9 +278,10 @@ def test_component_get_cost_and_unported_methods(fake_system, tmp_path):
         s.as_jax_fn()
     with pytest.raises(FileNotFoundError):
         s.load_training_cache(tmp_path / "cache.pkl")
-    for call in (s.plot_slice, s.plot_allocation):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            call()
+    fig, ax = s.plot_allocation()
+    assert [t.get_text() for t in ax.get_yticklabels()] == [f"{c.name} a={c.model_fidelity}" for c in s.components]
+    fig, axes = s.plot_slice(inputs=["P_b"], outputs=["T"], num_steps=3)
+    assert axes.shape == (1, 1) and len(axes[0][0].lines[0].get_ydata()) == 3
 
 
 def test_compression_and_svd_rank_match_jax():

@@ -44,6 +44,8 @@ from hallthrusterpem_tpu_torch.scripts.pem_v0 import dataset_util as tdu  # noqa
 from hallthrusterpem_tpu_torch.scripts.pem_v0 import mcmc as tmcmc  # noqa: E402
 from hallthrusterpem_tpu_torch.scripts.pem_v0 import monte_carlo as tmc  # noqa: E402
 from hallthrusterpem_tpu_torch.scripts.pem_v0 import sobol as tsobol  # noqa: E402
+from hallthrusterpem_tpu_torch.scripts import continue_mcmc as tcontinue  # noqa: E402
+from hallthrusterpem_tpu_torch.scripts import run_mcmc as trun_mcmc  # noqa: E402
 from hallthrusterpem_tpu_torch.uq import read_mcmc_chain as t_read_chain  # noqa: E402
 from test_torch_system import yaml_as_json_doc  # noqa: E402
 
@@ -281,6 +283,8 @@ MAINS = {
                           "--qois", "V_cc", "T", "I_d", "--out", "mc.npz"],
     "monte_carlo-data": ["monte_carlo", "--data", "spt100", "-n", "8", "--compare-model",
                          "--allocation", "--qois", "V_cc", "T", "I_d", "u_ion"],
+    "monte_carlo-data-plots": ["monte_carlo", "--data", "spt100", "-n", "8", "--plots",
+                               "--qois", "V_cc", "T", "I_d", "u_ion", "j_ion"],
     "sobol": ["sobol", "-n", "64", "--pressures", "1e-5", "--qois", "T", "I_d", "V_cc", "--out", "s.json"],
 }
 
@@ -295,9 +299,16 @@ def test_main_runs_on_fake_pem(fake_json, tmp_path, case, capsys):
         n = 21 if "dram" in case else 6
         assert samples.shape[0] == n and np.isfinite(samples).all() and logps.max() > -1e29
         assert "posterior mean" in out and "host path" not in out
+        assert "saved mcmc_corner.png" in out and "saved mcmc_predictive.png" in out
+        assert (tmp_path / "mcmc_corner.png").exists() and (tmp_path / "mcmc_predictive.png").exists()
     elif case == "monte_carlo-sweep":
         with np.load(tmp_path / "mc.npz") as f:
             assert len(f.files) == 6 and f["P_b_1.00e-05/T"].shape == (32,)
+    elif case == "monte_carlo-data-plots":
+        names = ["mc_V_cc_prior.png", "mc_T_prior.png", "mc_I_d_prior.png", "mc_u_ion_prior.png",
+                 "mc_j_ion_prior.png", "mc_surrogate_slices.png"]
+        assert f"saved figures: {', '.join(names)}" in out
+        assert all((tmp_path / n).exists() for n in names)
     elif case == "monte_carlo-data":
         assert "rel-L2 surrogate vs data" in out and "rel-L2 model vs data" in out
         assert "u_ion (field, vs data)" in out and "MISC allocation" in out
@@ -331,6 +342,49 @@ def test_mcmc_main_device_posterior_r5(r5_systems, tmp_path, monkeypatch, capsys
     res = tmc.main([str(path), "--data", "spt100", "-n", "4", "--posterior", "chain.npz", "--device", "cpu",
                     "--qois", "V_cc", "T", "I_d"])
     assert set(res["rel_l2"]) == set(QOIS) and "posterior predictive from" in capsys.readouterr().out
+
+
+def test_run_mcmc_restart(fake_json, tmp_path):
+    """``run_mcmc`` runs DRAM, then restarts a second chain from the first's most
+    probable sample with its scaled sample covariance."""
+    real_dram = tmcmc.dram
+    common = [fake_json, "--niter", "20", "--walkers", "4", "--use-model", "best", "--device", "cpu"]
+    trun_mcmc.main(common + ["--file", "c1.npz"])
+    c1, lp1 = t_read_chain(tmp_path / "c1.npz", burn_frac=0.5)
+    flat = c1.reshape(-1, c1.shape[-1])
+    x0 = flat[np.argmax(lp1.reshape(-1))]
+    samples, _, _ = trun_mcmc.main(common + ["--file", "c2.npz", "--restart", "c1.npz"])
+    c2, _ = t_read_chain(tmp_path / "c2.npz", burn_frac=0.0, clean=False)
+    assert c2.shape == (21, 4, flat.shape[1]) and np.array_equal(c2, samples)
+    # every walker starts at the restart point (DRAM jitters each by 1e-6 relative)
+    np.testing.assert_allclose(c2[0], np.broadcast_to(x0, c2[0].shape), rtol=1e-5)
+    assert tmcmc.dram is real_dram
+
+
+def test_continue_mcmc_appends_from_last_ensemble(r5_systems, tmp_path, monkeypatch, capsys):
+    """``continue_mcmc`` on a stored 6-row chain of 34 walkers on the r5 trained
+    surrogate: it starts from the stored last ensemble and appends ``niter``
+    ensembles, the stored rows untouched."""
+    tsys, _ = r5_systems
+    monkeypatch.chdir(tmp_path)
+    config = tsys.save_to_file("r5_trained.json", tmp_path)
+    with np.load(EXPORT) as f:
+        draws = f["draws"][:34]
+    rng = np.random.default_rng(5)
+    stored = draws[None] * (1 + 1e-3 * rng.standard_normal((6,) + draws.shape))
+    stored[-1] = draws
+    np.savez(tmp_path / "chain.npz", samples=stored, log_pdf=np.zeros(stored.shape[:2]))
+    samples, logps, acc = tcontinue.main(["chain.npz", "--config", str(config), "--niter", "3",
+                                          "--noise-samples", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    chain, lp = t_read_chain(tmp_path / "chain.npz", burn_frac=0.0, clean=False)
+    assert samples.shape == (4, 34, 17) and np.array_equal(samples[0], draws)
+    assert chain.shape == (9, 34, 17)
+    np.testing.assert_array_equal(chain[:6], stored)
+    np.testing.assert_array_equal(chain[6:], samples[1:])
+    np.testing.assert_array_equal(lp[6:], logps[1:])
+    assert np.isfinite(logps).all() and 0.0 <= acc <= 1.0
+    assert "continuing from ensemble state (34, 17)" in out and "honest ESS per param" in out
 
 
 if __name__ == "__main__":
