@@ -82,12 +82,28 @@ Phases, each printed with its seconds:
     ``process_local_batch`` of half the rows, then ``gather_to_host``: each
     equal to phase 4 bit for bit, with ``kstep`` launched once per shard and
     launch; (d) the host's µs per ``kstep`` launch with 1 and 2 threads
-    enqueuing (``PARALLEL_HOST_LAUNCHES`` each).
+    enqueuing (``PARALLEL_HOST_LAUNCHES`` each);
+18. the workflow scripts of ``hallthrusterpem_tpu_torch/scripts`` on the card:
+    (a) ``install_solver`` (the build, warm here, and a smoke run at fidelities
+    (0,0), (1,1), (2,2)), then ``kstep<1,1>`` and ``kstep<2,1>`` (fidelities
+    (0,0) and (1,1)) one launch each against the plain version from one carry
+    at B = ``WORKFLOW_BATCH``, timed beside their bounds; (b)
+    ``validate_solver`` at its own settings (100 cells, 1 charge state, 6e-4 s,
+    120,000 steps through ``kstep<1,1>`` at B = 10) with its trend asserts, and
+    one launch at that shape against the plain version; (c) ``gen_data`` on
+    ``configs/pem_v0_SPT-100.json`` (the Thruster cut to ``WRAPPER_DURATION``,
+    ``WORKFLOW_GEN`` samples) and ``fit_surr --surrogate mlp`` at the r5 width
+    (``WORKFLOW_MLP``), its test rel-L2 per QoI; (d) ``surr_report`` on the r5
+    trained ensemble and test set (``runs/r5/surr``), each rel-L2 within
+    ``WORKFLOW_REPORT_TOL`` of r5's ``report.json``; (e) ``debug`` over
+    ``make_mesh()``; (f) ``BatchExecutor(Mesh([cuda:0, cuda:0])).run`` of
+    ``hallthruster_jl`` on phase 9's inputs at ``WORKFLOW_SHARDED_DURATION``,
+    bit for bit against the unsharded call.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
-line (phase 17), a ``{"kernels": [...]}``
-line, the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
+line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"kernels": [...]}``
+line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
 
@@ -98,6 +114,7 @@ import collections
 import dataclasses
 import json
 import math
+import pickle
 import re
 import shutil
 import subprocess
@@ -171,6 +188,16 @@ UQ_QOIS = ["V_cc", "T", "I_d", "u_ion", "j_ion"]
 # phase 17: launches each host thread enqueues, the seconds a child process may take
 PARALLEL_HOST_LAUNCHES = 200
 PARALLEL_CHILD_TIMEOUT = 300
+# phase 18: the batch of the low-fidelity kernels' parity launch and timing; the
+# pipeline's compression and test samples; fit_surr's MLP (samples labelled,
+# steps, width, members: the r5 width, far fewer samples and steps); the bound on
+# surr_report's rel-L2 against runs/r5/surr/report.json (4 decimals); the
+# simulated seconds of the sharded wrapper's bit-equality check
+WORKFLOW_BATCH = 1024
+WORKFLOW_GEN = (256, 128)
+WORKFLOW_MLP = {"samples": 1024, "steps": 300, "hidden": (512,) * 4, "ensemble": 8}
+WORKFLOW_REPORT_TOL = 5e-4
+WORKFLOW_SHARDED_DURATION = 5e-5
 
 
 def log(msg: str) -> None:
@@ -314,6 +341,28 @@ def cuda_ms(fn, reps: int, lead: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kstep_bound(fs, kernels, carry, cfg, physics) -> dict:
+    """The least time of one K = 50 launch from ``carry`` ``(consts, state,
+    prof, sacc)``: the larger of its operations (counted on the plain version:
+    one step's and the set-up's, from 1 and 2 steps) over the card's float32
+    rate and its bytes over the memory rate. ``bytes``: state and profile sums
+    read and written; of each sample's 128 accumulator slots the ones up to the
+    circuit current read and written (no trace lanes), of its 128 scalar slots
+    the ones before it read; the lane constants and the rate coefficients read.
+    The plain steps advance ``carry``."""
+    consts, state, prof, sacc = carry
+    K, batch = fs.INNER_STEPS, sacc.shape[0]
+    ops1 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 1, cfg, physics))
+    ops2 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 2, cfg, physics))
+    ops = (ops1 - (ops2 - ops1)) + K * (ops2 - ops1)
+    n_bytes = 4 * (2 * (state.numel() + prof.numel()) + 2 * batch * (fs.A_ICIR + 1)
+                   + consts["nu_anom"].numel() + consts["omega_ce"].numel()
+                   + batch * fs.P_ICIR + kernels.rate_coefficients(cfg).size)
+    ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms, "ops_per_step": ops2 - ops1}
 
 
 def lax_card_vs_cpu(cfg, params, base_B, n_steps: int) -> float:
@@ -1066,6 +1115,216 @@ def parallel_phase(pem, inputs: dict, ref: dict, n_launch: int, kstep_ms: float)
     return rec
 
 
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits, NaN where NaN."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def workflow_phase(thruster_inputs: dict, tree_kw: dict) -> tuple:
+    """Phase 18: the workflow scripts of ``hallthrusterpem_tpu_torch/scripts`` on
+    the card. ``thruster_inputs`` and ``tree_kw`` are phase 9's inputs and
+    wrapper arguments. Returns the ``{"workflow": ...}`` record and the entries
+    of the ``kstep<1,1>`` and ``kstep<2,1>`` instantiations for the kernels line."""
+    import numpy as np
+    import torch
+
+    from hallthrusterpem_tpu_torch.core.json_loader import config_dir, load_system
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels, hallthruster_jl
+    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from hallthrusterpem_tpu_torch.parallel import BatchExecutor, Mesh
+    from hallthrusterpem_tpu_torch.pem import CoupledPEM, _coupled_pre, default_coupled_inputs
+    from hallthrusterpem_tpu_torch.scripts import (debug, fit_surr, gen_data, install_solver, surr_report,
+                                                   validate_solver)
+
+    t_phase = time.perf_counter()
+    dev, sync, K = torch.device("cuda", 0), torch.cuda.synchronize, fs.INNER_STEPS
+    rec: dict = {}
+
+    def parity(params, base_B, cfg) -> tuple:
+        """One launch of the kernel and of its plain version from one carry:
+        (max scaled error, max absolute error, arrays, the carry)."""
+        cfg = dataclasses.replace(cfg, average_start_time=0.0)  # accumulate from step 0
+        physics = fs.Physics(cfg)
+        carry = fs.init_carry(params, base_B, cfg)
+        outs = []
+        for block in (fs.kstep, fs.kstep_plain):
+            c = [x.clone() for x in carry[1:]]
+            block(*c, carry[0], 0, K, cfg, physics)
+            outs.append(c)
+        sync()
+        assert all(bool(torch.isfinite(x).all()) for x in outs[0]), "kernel carry not finite"
+        return (*carry_errs(fs, outs[0], outs[1]), carry, cfg, physics)
+
+    # ---- (a) install_solver: the build, a smoke run per fidelity; then kstep<1,1>
+    # and kstep<2,1> against the plain version and timed at B = WORKFLOW_BATCH
+    t0 = time.perf_counter()
+    inst = install_solver.main([])
+    sync()
+    rec["install_solver"] = dict(inst, wall_s=time.perf_counter() - t0)
+    for f in inst["fidelities"]:
+        assert f["kstep_launches"] > 0 and f["finite"] > 0, f
+    log(f"[18a install_solver] build " + ", ".join(f"{k} {v['seconds']:.2f} s (cached={v['cached']})"
+                                                    for k, v in inst["build"].items())
+        + "; " + "; ".join(f"fidelity {tuple(f['fidelity'])}: {f['wall_s']:.3f} s, {f['kstep_launches']} kstep "
+                           f"launches, finite {f['finite']}" for f in inst["fidelities"]))
+    launches = {tuple(f["fidelity"]): f["kstep_launches"] for f in inst["fidelities"]}
+    entries = {}
+    for fid in ((0, 0), (1, 1)):
+        pem = CoupledPEM(thruster="SPT-100", model_fidelity=fid, duration=2e-5, device=dev)
+        params, _ = _coupled_pre(default_coupled_inputs(WORKFLOW_BATCH, torch.Generator().manual_seed(18),
+                                                        spread=0.08, device=dev), pem.cfg)
+        err, err_abs, n_arrays, carry, cfg, physics = parity(params, pem.base_B, pem.cfg)
+        name = f"kstep<{cfg.ncharge},{cfg.neutral_groups}>"
+        launch = lambda block: block(carry[1], carry[2], carry[3], carry[0], 0, K, cfg, physics)
+        ms = cuda_ms(lambda: launch(fs.kstep), 20, lead=True)
+        plain_ms = cuda_ms(lambda: launch(fs.kstep_plain), 1)
+        bound = kstep_bound(fs, _kernels, carry, cfg, physics)
+        log(f"[18a {name}] fidelity {fid} ({cfg.num_cells} cells, {fs.lanes_for(cfg)} lanes), B={WORKFLOW_BATCH}: "
+            f"1 launch (K={K}) vs {K} plain steps, max scaled error {err:.3e} (tolerance {STATE_RTOL:g}), max "
+            f"absolute error {err_abs:.3e} over {n_arrays} arrays; {ms:.3f} ms/launch, plain {plain_ms:.1f} ms, "
+            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} ({ms / bound['bound_ms']:.2f}x)")
+        assert err < STATE_RTOL, (name, err)
+        entries[fid] = {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+                        "launches": launches[fid], "launches_install_solver": launches[fid],
+                        "max_abs_err": err_abs, "max_scaled_err": err, "scaled_err_tolerance": STATE_RTOL,
+                        "batch": WORKFLOW_BATCH, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                        "bound_by": bound["bound_by"], "library_ms": None}
+        del pem, params, carry
+
+    # ---- (b) validate_solver at its own settings: kstep<1,1> at 100 cells, B = 10
+    t0 = time.perf_counter()
+    _kernels.reset_counts()
+    res = validate_solver.main([])
+    sync()
+    n_val = _kernels.launch_counts["kstep"]
+    cfg = res["cfg"]
+    assert n_val == math.ceil(cfg.num_steps / K), (n_val, cfg.num_steps)
+    finite = int(np.isfinite(res["out"]["thrust"]).sum())
+    vcfg, vparams, vB = validate_solver.sweep_inputs()[:3]
+    err, err_abs, n_arrays, carry, *_ = parity(vparams, vB, vcfg)
+    rec["validate_solver"] = {"wall_s": time.perf_counter() - t0, "solve_s": res["wall_s"], "steps": cfg.num_steps,
+                              "dt": cfg.dt, "kstep_launches": n_val, "rows": int(res["bad"].size),
+                              "finite_rows": finite, "guarded_rows": int(res["bad"].sum()),
+                              "physical_rows": res["physical_rows"], "trends_pass": True,
+                              "kstep_max_scaled_err": err, "kstep_max_abs_err": err_abs}
+    log(f"[18b validate_solver] {res['bad'].size} points, {cfg.num_cells} cells, {cfg.num_steps} steps at dt "
+        f"{cfg.dt:.3e} s: solve {res['wall_s']:.3f} s, {n_val} kstep launches, finite {finite}, guarded "
+        f"{int(res['bad'].sum())}, trends pass over {res['physical_rows']} physical points; one kstep<1,1> launch "
+        f"at B=10 vs plain: max scaled error {err:.3e} (tolerance {STATE_RTOL:g}), max absolute {err_abs:.3e} "
+        f"over {n_arrays} arrays")
+    assert err < STATE_RTOL, err
+    entries[(0, 0)]["launches"] += n_val
+    entries[(0, 0)]["launches_validate_solver"] = n_val
+    entries[(0, 0)]["max_scaled_err_validate_solver"] = err
+    del carry, vparams
+
+    # ---- (c) the pipeline on configs/pem_v0_SPT-100.json, the Thruster cut to
+    # WRAPPER_DURATION: gen_data, then fit_surr --surrogate mlp at the r5 width
+    work = Path("build") / "workflow"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    doc = json.loads((config_dir() / "pem_v0_SPT-100.json").read_text())
+    thr = next(c for c in doc["components"] if c["name"] == "Thruster")
+    thr["simulation"] = dict(thr["simulation"], duration=WRAPPER_DURATION)
+    thr["postprocess"] = dict(thr["postprocess"], average_start_time=0.5 * WRAPPER_DURATION)
+    (work / "pem_v0_SPT-100.json").write_text(json.dumps(doc))
+    n_c, n_t = WORKFLOW_GEN
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    comp_path = gen_data.main([str(work / "pem_v0_SPT-100.json"), "-c", str(n_c), "-t", str(n_t)])
+    sync()
+    gen_s, gen_launches = time.perf_counter() - t0, _kernels.launch_counts["kstep"]
+    sets = {}
+    for tag in ("compression", "test_set"):
+        with open(comp_path.parent / f"{tag}.pkl", "rb") as fd:
+            d = pickle.load(fd)
+        sets[tag] = {"rows": int(d["discard"].size), "kept": int((~d["discard"]).sum()),
+                     "nan": int(d["nan_idx"].sum()), "outliers": int(d["outlier_idx"].sum())}
+    system = load_system(comp_path, device=dev)
+    ranks = {v.name: v.compression.rank for c in system.components for v in c.outputs if v.compression is not None}
+    rec["gen_data"] = {"wall_s": gen_s, "rows_per_s": (n_c + n_t) / gen_s, "kstep_launches": gen_launches,
+                       "sets": sets, "ranks": ranks}
+    log(f"[18c gen_data] -c {n_c} -t {n_t}, Thruster {WRAPPER_DURATION:g} s: {gen_s:.3f} s "
+        f"({(n_c + n_t) / gen_s:.1f} rows/s), {gen_launches} kstep launches; " + "; ".join(
+            f"{t}: kept {v['kept']}/{v['rows']}, NaN {v['nan']}, outliers {v['outliers']}" for t, v in sets.items())
+        + f"; ranks {ranks}")
+    assert gen_launches > 0 and sets["compression"]["kept"] > n_c // 2 and sets["test_set"]["kept"] > n_t // 2
+    assert set(ranks) == {"u_ion", "j_ion"} and all(r >= 1 for r in ranks.values()), ranks
+
+    m = WORKFLOW_MLP
+    assert not torch.backends.cuda.matmul.allow_tf32
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    trained_path = fit_surr.main([str(comp_path), "--surrogate", "mlp", "--mlp-samples", str(m["samples"]),
+                                  "--mlp-steps", str(m["steps"]), "--mlp-hidden", *map(str, m["hidden"]),
+                                  "--mlp-ensemble", str(m["ensemble"])])
+    sync()
+    fit_s, fit_launches = time.perf_counter() - t0, _kernels.launch_counts["kstep"]
+    assert not torch.backends.cuda.matmul.allow_tf32
+    trained = load_system(trained_path, device=dev)
+    errors = trained.system_surrogate.test_errors(*fit_surr.load_test_set(comp_path))
+    rec["fit_surr"] = {"wall_s": fit_s, "kstep_launches": fit_launches, **m, "test_rel_l2": errors,
+                       "n_train": trained.system_surrogate.train_info["n_train"]}
+    log(f"[18c fit_surr] --surrogate mlp, {m['samples']} samples labelled ({fit_launches} kstep launches), "
+        f"{m['steps']} steps at {m['hidden']} x {m['ensemble']}: {fit_s:.3f} s; test rel-L2 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(errors.items())))
+    assert fit_launches > 0 and errors and all(math.isfinite(v) for v in errors.values()), errors
+    del system, trained
+
+    # ---- (d) surr_report on the r5 trained state and test set
+    t0 = time.perf_counter()
+    r5 = Path("runs") / "r5" / "surr"
+    rep = surr_report.main([str(r5), "-o", str((work / "r5_report.json").resolve()),
+                            "--config", "pem_v0_SPT-100_compression.json"])
+    ref = json.loads((r5 / "report.json").read_text())
+    gaps = {k: abs(rep["rel_l2"][k] - v) for k, v in ref["rel_l2"].items()}
+    gaps["I_d.global_rel_l2"] = abs(rep["I_d"]["global_rel_l2"] - ref["I_d"]["global_rel_l2"])
+    rec["surr_report"] = {"wall_s": time.perf_counter() - t0, "n_test": rep["n_test"], "rel_l2": rep["rel_l2"],
+                          "I_d": rep["I_d"], "eta_c": rep["eta_c"], "largest_gap_to_r5": max(gaps.values())}
+    log(f"[18d surr_report] r5 ensemble on r5's {rep['n_test']} test rows, on the card: rel-L2 "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rep["rel_l2"].items())
+        + f"; largest gap to runs/r5/surr/report.json {max(gaps.values()):.1e} (tolerance {WORKFLOW_REPORT_TOL:g})")
+    assert rep["n_test"] == ref["n_test"] and set(rep["rel_l2"]) == set(ref["rel_l2"])
+    assert max(gaps.values()) <= WORKFLOW_REPORT_TOL, gaps
+
+    # ---- (e) debug over make_mesh()
+    rec["debug"] = debug.main([])
+    log(f"[18e debug] {rec['debug']}")
+
+    # ---- (f) the wrapper sharded by BatchExecutor over Mesh([cuda:0, cuda:0]),
+    # bit for bit against the unsharded call
+    t0 = time.perf_counter()
+    dur = WORKFLOW_SHARDED_DURATION
+    kw = dict(tree_kw, simulation=dict(tree_kw["simulation"], duration=dur),
+              postprocess=dict(tree_kw["postprocess"], average_start_time=0.5 * dur), device=dev)
+    _kernels.reset_counts()
+    ref = hallthruster_jl(thruster_inputs, **kw)
+    n_ref = _kernels.launch_counts["kstep"]
+    _kernels.reset_counts()
+    got = BatchExecutor(Mesh([dev, dev])).run(hallthruster_jl, thruster_inputs, **kw)
+    sync()
+    n_got = _kernels.launch_counts["kstep"]
+    keys = [k for k, v in ref.items() if isinstance(v, torch.Tensor) and k != "model_cost"]
+    raw_ref, raw_got = (o["thruster_output"]["output"]["average"] for o in (ref, got))
+    raw_keys = [k for k, v in raw_ref.items() if isinstance(v, torch.Tensor)]
+    unequal = [k for k in keys if not same_bits(got[k], ref[k])]
+    unequal += [f"raw {k}" for k in raw_keys if not same_bits(raw_got[k], raw_ref[k])]
+    unequal += [f"raw ui[{z}]" for z, (a, b) in enumerate(zip(raw_got["ui"], raw_ref["ui"])) if not same_bits(a, b)]
+    batch = len(thruster_inputs["V_a"])
+    finite = int(torch.isfinite(ref["T"]).sum())
+    rec["sharded_wrapper"] = {"batch": batch, "duration": dur, "kstep_launches_unsharded": n_ref,
+                              "kstep_launches_two_shards": n_got, "finite_rows": finite, "bit_equal": not unequal,
+                              "wall_s": time.perf_counter() - t0}
+    log(f"[18f sharded wrapper] BatchExecutor(Mesh([cuda:0, cuda:0])).run(hallthruster_jl), B={batch}, {dur:g} s: "
+        f"kstep launches {n_got} (unsharded {n_ref}), finite rows {finite}; outputs and raw averages that differ "
+        f"from the unsharded call in any bit: {unequal or 'none'} ({time.perf_counter() - t0:.2f} s)")
+    assert not unequal and n_got == 2 * n_ref, (unequal, n_got, n_ref)
+
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[18 workflow] done ({rec['wall_s']:.2f} s)")
+    return rec, [entries[(0, 0)], entries[(1, 1)]]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -1220,23 +1479,13 @@ def main() -> int:
     launch(fs.kstep)
     ms = cuda_ms(lambda: launch(fs.kstep), 20, lead=True)
     plain_ms = cuda_ms(lambda: launch(fs.kstep_plain), 1)
-    ops1 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 1, pem.cfg, physics))
-    ops2 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 2, pem.cfg, physics))
-    ops = (ops1 - (ops2 - ops1)) + K * (ops2 - ops1)
-    # what the kernel moves: state and profile sums read and written; of each
-    # sample's 128 accumulator slots the 8 it reads and writes (no trace lanes
-    # here), of its 128 scalar slots the 8 it reads (P_DV .. P_LDT); the lane
-    # constants and the rate coefficients read
-    n_bytes = 4 * (2 * (state.numel() + prof.numel()) + 2 * batch * (fs.A_ICIR + 1)
-                   + consts["nu_anom"].numel() + consts["omega_ce"].numel()
-                   + batch * fs.P_ICIR + _kernels.rate_coefficients(pem.cfg).size)
-    ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    bound = kstep_bound(fs, _kernels, (consts, state, prof, sacc), pem.cfg, physics)
+    bound_ms = bound["bound_ms"]
     lanes = batch * fs.lanes_for(pem.cfg)
     log(f"[6 timing] kstep B={batch} K={K}: {ms:.3f} ms/launch ({ms / K * 1e3:.2f} us/step, "
-        f"{ms / bound_ms:.2f}x the bound), plain {plain_ms:.1f} ms; {(ops2 - ops1) / lanes:.0f} ops per "
-        f"lane-step, {ops:.3e} ops and {n_bytes:.3e} bytes per launch -> bound {bound_ms:.4f} ms "
-        f"(ops {ops_ms:.4f}, bytes {bytes_ms:.4f}); {barriers} block barriers per step, "
+        f"{ms / bound_ms:.2f}x the bound), plain {plain_ms:.1f} ms; {bound['ops_per_step'] / lanes:.0f} ops per "
+        f"lane-step, {bound['ops']:.3e} ops and {bound['bytes']:.3e} bytes per launch -> bound {bound_ms:.4f} ms "
+        f"(ops {bound['ops_ms']:.4f}, bytes {bound['bytes_ms']:.4f}); {barriers} block barriers per step, "
         f"{blocks_per_sm} blocks per SM")
     # the issue-rate estimate: the busiest SM's warps each issue the step's
     # static instructions, over its 4 schedulers at one instruction a clock
@@ -1251,7 +1500,7 @@ def main() -> int:
         + f" against {ms / K * 1e3:.2f} measured ({time.perf_counter() - t0:.2f} s)")
 
     kstep_ms, kstep_plain_ms = ms, plain_ms
-    kstep_bound = (bound_ms, "operations" if ops_ms >= bytes_ms else "bytes")
+    kstep_bound_3 = (bound_ms, bound["bound_by"])
     del params, consts, state, prof, sacc
 
     # ---- 7. the K-step kernel's variants vs the plain version: B = 1024, fidelity (2,2)
@@ -1421,19 +1670,23 @@ def main() -> int:
     uq = uq_phase(Path("build") / "surrogate" / "surrogate_trained.json")
     # ---- 17. the multi-device path (on phase 4's inputs and outputs)
     parallel = parallel_phase(pem, main_inputs, main_out, n_launch, kstep_ms)
+    # ---- 18. the workflow scripts (on phase 9's inputs for the sharded wrapper)
+    workflow, low_fidelity_kernels = workflow_phase(thruster_inputs(42), tree_kw)
 
     kernels = [{
-        "name": "kstep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches["kstep"], "launches_wrapper_path": wrapper_launches["kstep"],
+        "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": launches["kstep"], "launches_wrapper_path": wrapper_launches["kstep"],
         "launches_uq_predictive": uq["predictive"]["kstep_launches"],
         "launches_two_shards": parallel["two_shards"]["kstep_launches"],
+        "launches_gen_data": workflow["gen_data"]["kstep_launches"],
+        "launches_fit_surr": workflow["fit_surr"]["kstep_launches"],
         "max_abs_err": max_abs, "max_scaled_err": max_err,
         "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
-        "bound_ms": kstep_bound[0], "bound_by": kstep_bound[1], "library_ms": None,
+        "bound_ms": kstep_bound_3[0], "bound_by": kstep_bound_3[1], "library_ms": None,
         "blocks_per_sm": blocks_per_sm, "barriers_per_step": barriers, "sass_instructions": len(sass),
         "sass_instructions_per_step": step_insns, "sm_clock_mhz": sm_mhz, "issue_us_per_step": issue_us,
-    }, {
+    }, *low_fidelity_kernels, {
         "name": "step", "route": "cuda", "source": STEP_SOURCE, "replaces": STEP_REPLACES,
         "launches": step_launches["step"], "max_abs_err": step_abs, "max_scaled_err": step_err,
         "scaled_err_tolerance": STATE_RTOL, "ms": step_ms, "host_paced_ms": step_paced_ms,
@@ -1447,6 +1700,7 @@ def main() -> int:
     print(json.dumps({"surrogate": surrogate}), flush=True)
     print(json.dumps({"uq": uq}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"workflow": workflow}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -214,13 +214,28 @@ def simulate_batch_sharded(params: dict, base_B, cfg: SolverConfig, mesh, axis_n
     return sharded_call(solve, mesh, axis_name)(params, torch.as_tensor(base_B, dtype=torch.float32))
 
 
-def run_simulation(json_input, device=None, **_compat) -> dict:
+def _solve_on_mesh(params: dict, base_B, cfg: SolverConfig, mesh) -> dict:
+    """:func:`simulate_batch_sharded` with one config for the whole batch: the
+    rows are padded to a multiple of the mesh with copies of the last row, and
+    the padding is dropped from the outputs."""
+    n = params["V_d"].shape[0]
+    rem = (-n) % mesh.n_devices
+    if rem:
+        params = {k: torch.cat([v, v[-1:].expand(rem, *v.shape[1:])]) for k, v in params.items()}
+    raw = simulate_batch_sharded(params, base_B, cfg, mesh)
+    return {k: v[:n] if rem and v.ndim and v.shape[0] == n + rem else v for k, v in raw.items()}
+
+
+def run_simulation(json_input, device=None, mesh=None, **_compat) -> dict:
     """Run the discharge solver from a reference-format input tree (or the path of
     its JSON file) and return the reference-format output tree
     (``{'output': {'average': ...}, 'config': ..., ...}``) with tensors on
     ``device``. With ``simulation.num_save`` the average holds the I_d(t) trace,
     and ``postprocess.cycle_average`` then replaces ``discharge_current`` by its
-    whole-breathing-cycle mean where that is finite."""
+    whole-breathing-cycle mean where that is finite. With a ``mesh``
+    (:class:`~hallthrusterpem_tpu_torch.parallel.mesh.Mesh`) the batch is
+    sharded over its devices, every shard stepped with the one config the
+    whole tree gives."""
     if not isinstance(json_input, dict):
         with open(json_input, "r", encoding="utf-8") as fd:
             json_input = json.load(fd)
@@ -229,7 +244,7 @@ def run_simulation(json_input, device=None, **_compat) -> dict:
     scalar_in = params["V_d"].ndim == 0
     if scalar_in:
         params = {k: v.reshape(1) for k, v in params.items()}
-    raw = dispatch_solver(params, base_B, cfg)
+    raw = dispatch_solver(params, base_B, cfg) if mesh is None else _solve_on_mesh(params, base_B, cfg, mesh)
     if scalar_in:
         raw = {k: v[0] for k, v in raw.items()}
     z_axis = 0 if scalar_in else 1
@@ -308,18 +323,24 @@ def hallthruster_jl(
     run_kwargs: Optional[dict] = None,  # accepted for API parity; unused
     shock_threshold: Optional[float] = None,
     device=None,
+    mesh=None,
 ) -> Dataset:
     """PEM thruster component: batched 1-D Hall discharge simulation.
 
     Every entry of ``thruster_inputs`` may be a (batch,) tensor; the whole batch
     is solved in one call on ``device`` (a CUDA device unless ``"cpu"`` is
-    given). Non-physical samples come back as NaN rows: negative thrust, beam
+    given). With a ``mesh`` (a :class:`~hallthrusterpem_tpu_torch.parallel.mesh.Mesh`,
+    which ``BatchExecutor.run`` passes) the input tree and its config (grid,
+    time step) are still built once from the whole batch and only the solve is
+    sharded over the mesh's devices, so the outputs are those of the unsharded
+    call, on the mesh's first device unless ``device`` names another.
+    Non-physical samples come back as NaN rows: negative thrust, beam
     current, discharge current or mass efficiency; a beam current above
     1.5 Z e mdot / m_i; a time-averaged discharge current outside
     [0.2, 8] e mdot / m_i when the averaging window starts at or after 0.2 ms; an
     ion-velocity peak upstream of ``shock_threshold``; a non-finite thrust.
     """
-    device = resolve_device(device)
+    device = resolve_device(device if device is not None or mesh is None else mesh.devices[0])
     _map = copy.deepcopy(PEM_TO_JULIA)
     if pem_to_julia is not None:
         _map.update(pem_to_julia)
@@ -337,7 +358,7 @@ def hallthruster_jl(
         tree["postprocess"]["output_file"] = str((Path(output_path) / fname).resolve())
 
     t1 = time.time()
-    sim_results = run_simulation(tree, device=device)
+    sim_results = run_simulation(tree, device=device, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t2 = time.time()

@@ -110,8 +110,13 @@ def convert_to_pem(tree: dict, pem_to_julia: dict) -> dict:
 
 
 def _extreme(value, largest: bool) -> float:
-    """Largest or smallest element of a scalar, array or tensor, as a float."""
-    t = torch.as_tensor(value, dtype=torch.float64)
+    """Largest or smallest element of a scalar, array or tensor, as a float,
+    NaN elements skipped (NaN when all are): a failed or padded row must not
+    set the whole batch's grid or time step."""
+    t = torch.as_tensor(value, dtype=torch.float64).reshape(-1)
+    t = t[~torch.isnan(t)]
+    if t.numel() == 0:
+        return float("nan")
     return float(t.max() if largest else t.min())
 
 

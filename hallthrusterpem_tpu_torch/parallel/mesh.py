@@ -11,6 +11,7 @@ on the same device run one after another on that device's current stream.
 from __future__ import annotations
 
 import contextlib
+import inspect
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
@@ -151,10 +152,12 @@ def sharded_call(fn: Callable, mesh: Mesh, axis_name: str = BATCH_AXIS):
     """Wrap a batched ``fn(batch_tree, *args, **kwargs)`` so that each shard of the
     batch runs on its own device of the mesh, with the tensors among ``args``
     copied there; outputs come back concatenated in batch order on
-    ``mesh.devices[0]``. ``fn`` must be elementwise over the batch, as the solver
-    is; whatever it derives from the whole batch (a config) is built by the
-    caller once, before the call. Distinct devices run at once, one host thread
-    each; shards on the same device run in turn."""
+    ``mesh.devices[0]``. ``fn`` must be elementwise over the batch: each shard
+    sees only its own rows, so whatever ``fn`` derives from the whole batch (a
+    time step, a grid) is built by the caller once, before the call, as
+    ``models.thruster.simulate_batch_sharded`` takes its config. Distinct
+    devices run at once, one host thread each; shards on the same device run in
+    turn."""
 
     def wrapper(batch_tree, *args, **kwargs):
         shards = shard_batch(batch_tree, mesh, axis_name)
@@ -180,10 +183,20 @@ def sharded_call(fn: Callable, mesh: Mesh, axis_name: str = BATCH_AXIS):
     return wrapper
 
 
+def _takes_mesh(fn: Callable) -> bool:
+    try:
+        return "mesh" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 class BatchExecutor:
     """The executor slot of ``System.predict(executor=...)``: instead of one
     subprocess per sample, the whole batch is padded to a multiple of the mesh,
-    sharded over it and run by :func:`sharded_call`, then trimmed back."""
+    sharded over it and run by :func:`sharded_call`, then trimmed back. A
+    function that takes a ``mesh`` keyword (``models.thruster.hallthruster_jl``)
+    is called once on the whole batch with the mesh instead, and shards its own
+    solve."""
 
     def __init__(self, mesh: Optional[Mesh] = None, axis_name: str = BATCH_AXIS):
         self.mesh = mesh or make_mesh()
@@ -194,9 +207,17 @@ class BatchExecutor:
         return self.mesh.n_devices
 
     def run(self, fn: Callable, batch_tree: dict, *args, **kwargs):
-        """``fn`` over ``batch_tree`` (a dict of (batch, ...) arrays or tensors):
-        NaN-padded to a multiple of the mesh, sharded, called, and every output
-        with at least ``n`` rows trimmed to the first ``n``."""
+        """``fn`` over ``batch_tree`` (a dict of (batch, ...) arrays or tensors).
+
+        If ``fn`` takes a ``mesh`` keyword, it is called once,
+        ``fn(batch_tree, *args, mesh=self.mesh, **kwargs)``: it derives what it
+        needs from the whole batch and shards its own solve. Otherwise ``fn``
+        must be elementwise over the batch: the batch is NaN-padded to a
+        multiple of the mesh, each shard is called on its own
+        (:func:`sharded_call`), and every output with at least ``n`` rows is
+        trimmed to the first ``n``."""
+        if _takes_mesh(fn):
+            return fn(batch_tree, *args, mesh=self.mesh, **kwargs)
         n = None
         padded = {}
         for k, v in batch_tree.items():

@@ -1,7 +1,8 @@
 """The port and chip_smoke.py import without JAX, optax, PyYAML, h5py, pandas,
 matplotlib or the JAX package: the machine with the card has none of them. Every
 module of the port is imported, the System layer's, the surrogates', the data
-loaders', UQ's, the scripts', the plots' and the parallel layer's among them
+loaders', UQ's, the scripts' (the workflow scripts among them), the plots' and
+the parallel layer's among them
 (scipy is allowed: the card's machine has it)."""
 
 import subprocess
@@ -37,7 +38,7 @@ def test_port_imports_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = set(proc.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 55
+    assert len(names) >= 65
     pkg = "hallthrusterpem_tpu_torch."
     assert {pkg + m for m in ("ops.tridiag", "ops.svd", "models.fake_thruster", "core.dataset", "core.variables",
                               "core.component", "core.system", "core.json_loader", "surrogate",
@@ -46,5 +47,8 @@ def test_port_imports_without_jax():
                               "data", "data.loader", "uq", "uq.mcmc", "uq.sobol", "uq.montecarlo", "uq.utils",
                               "scripts", "scripts.pem_v0", "scripts.pem_v0.dataset_util", "scripts.pem_v0.mcmc",
                               "scripts.pem_v0.monte_carlo", "scripts.pem_v0.sobol", "scripts.run_mcmc",
-                              "scripts.continue_mcmc", "viz", "parallel", "parallel.mesh",
+                              "scripts.continue_mcmc", "scripts.gen_data", "scripts.fit_surr",
+                              "scripts.plot_slice", "scripts.gen_mlp_data", "scripts.trim_domain",
+                              "scripts.remask_validity", "scripts.surr_report", "scripts.validate_solver",
+                              "scripts.debug", "scripts.install_solver", "viz", "parallel", "parallel.mesh",
                               "parallel.distributed")} <= names

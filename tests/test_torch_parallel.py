@@ -29,7 +29,7 @@ from hallthrusterpem_tpu.models.thruster import simulate_batch_sharded as jax_sh
 from hallthrusterpem_tpu.models.thruster.config import SolverConfig as JaxSolverConfig
 from hallthrusterpem_tpu.models.thruster.config import make_params as jax_make_params
 from hallthrusterpem_tpu.parallel.mesh import pad_to_multiple as jax_pad
-from hallthrusterpem_tpu_torch.models.thruster import _kernels, dispatch_solver, simulate_batch_sharded
+from hallthrusterpem_tpu_torch.models.thruster import _kernels, dispatch_solver, hallthruster_jl, simulate_batch_sharded
 from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
 from hallthrusterpem_tpu_torch.models.thruster.config import SolverConfig
 from hallthrusterpem_tpu_torch.parallel import BatchExecutor, Mesh, make_mesh, pad_to_multiple, sharded_call
@@ -128,6 +128,43 @@ def test_batch_executor_pads_and_trims():
     for key, ref in alone.items():
         assert got[key].shape == ref.shape and ref.shape[0] == 12, key
         assert _scaled(got[key], ref) <= 1e-6, key
+
+
+#: the wrapper's batch-wide config: the largest V_a sets the time step, so each
+#: half of this batch alone would step at its own (fidelity (0,0), 2e-6 s)
+WRAPPER_INPUTS = {"V_a": [200.0, 250.0, 300.0, 400.0], "mdot_a": [5e-6] * 4, "P_b": [1e-5] * 4,
+                  "V_cc": [30.0] * 4}
+WRAPPER_KW = dict(model_fidelity=(0, 0), simulation={"duration": 2e-6}, device="cpu")
+
+
+@pytest.mark.parametrize("rows", [pytest.param(4, id="two_rows_a_shard"),
+                                  pytest.param(3, id="padded_three_rows")])
+def test_batch_executor_runs_wrapper_as_unsharded(rows):
+    """``BatchExecutor.run(hallthruster_jl, ...)`` builds the input tree and the
+    config once from the whole batch and shards only the solve: every output
+    equals the unsharded call's within 1e-6 scaled, with no NaN row when the
+    batch does not divide the mesh."""
+    x = {k: torch.tensor(v[:rows]) for k, v in WRAPPER_INPUTS.items()}
+    got = BatchExecutor(Mesh(["cpu"] * 2)).run(hallthruster_jl, x, **WRAPPER_KW)
+    ref = hallthruster_jl(x, **WRAPPER_KW)
+    keys = [k for k, v in ref.items() if isinstance(v, torch.Tensor) and k != "model_cost"]
+    assert {"T", "I_d", "I_B0", "u_ion", "eta_m"} <= set(keys)
+    for key in keys:
+        assert got[key].shape == ref[key].shape and got[key].shape[0] == rows, key
+        assert np.isfinite(got[key].numpy()).all(), key
+        assert _scaled(got[key], ref[key]) <= 1e-6, key
+
+
+def test_wrapper_time_step_ignores_nan_rows():
+    """A failed (NaN) row sets neither the grid nor the time step of its batch:
+    the other rows come out as they do without it."""
+    x = {k: torch.tensor(v) for k, v in WRAPPER_INPUTS.items()}
+    with_nan = {k: torch.cat([v, torch.tensor([float("nan")])]) for k, v in x.items()}
+    got = hallthruster_jl(with_nan, **WRAPPER_KW)
+    ref = hallthruster_jl(x, **WRAPPER_KW)
+    assert torch.isnan(got["T"][-1]) and np.isfinite(got["T"][:-1].numpy()).all()
+    for key in ("T", "I_d", "I_B0", "u_ion"):
+        assert _scaled(got[key][:-1], ref[key]) <= 1e-6, key
 
 
 def test_mesh_and_shards():
