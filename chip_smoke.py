@@ -98,11 +98,29 @@ Phases, each printed with its seconds:
     ``WORKFLOW_REPORT_TOL`` of r5's ``report.json``; (e) ``debug`` over
     ``make_mesh()``; (f) ``BatchExecutor(Mesh([cuda:0, cuda:0])).run`` of
     ``hallthruster_jl`` on phase 9's inputs at ``WORKFLOW_SHARDED_DURATION``,
-    bit for bit against the unsharded call.
+    bit for bit against the unsharded call;
+19. the SPT-100 physics studies of ``hallthrusterpem_tpu_torch/scripts`` on the
+    card, uncut: (a) ``anchors`` (10 conditions, B = 10, 2e-3 s) held to the
+    TPU run's ``runs/r5/anchors.json`` (median scalar deviation within
+    ``STUDY_MEDIAN_TOL``, each within ``STUDY_EACH_TOL``, each profile rel-L2
+    within ``STUDY_PROFILE_GATE`` x r5's), with the anchor table's own verdict
+    printed beside the gate; (b) ``tune_r5 -n 256`` (768 rows at 2e-3 s in one
+    batch), at least ``STUDY_TUNE_FINITE`` of its rows finite and its table
+    within ``STUDY_MEDIAN_TOL`` (median) of ``runs/r5/tune_b_w093.json`` on the
+    candidates both score; (c) ``probe_uion``, ``diagnose_current``,
+    ``probe_anom_shape``, ``probe_anode_zone``, each with finite rows; (d)
+    ``diagnose_breathing`` at its defaults through the K-step route, then a
+    short lax-route run; (e) ``kernel_bench`` at ``STUDY_BENCH`` (CUDA events
+    around each run), its µs a step within ``STUDY_BENCH_TOL`` of the same run
+    timed launch by launch, and the first 20 launches (every row still healthy,
+    as in phase 6) within ``STUDY_BENCH_TOL`` of phase 6's; most of the
+    configuration's rows fail within ~1,200 steps (dt 5e-9 s at 200 cells), and
+    a step of the kernel then costs more, so the whole run is not held to phase 6.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
-line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"kernels": [...]}``
+line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"studies": {...}}``
+line (phase 19), a ``{"kernels": [...]}``
 line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -198,6 +216,24 @@ WORKFLOW_GEN = (256, 128)
 WORKFLOW_MLP = {"samples": 1024, "steps": 300, "hidden": (512,) * 4, "ensemble": 8}
 WORKFLOW_REPORT_TOL = 5e-4
 WORKFLOW_SHARDED_DURATION = 5e-5
+# phase 19: the anchors gate against the TPU run's artifact, with the repo's
+# parity tolerances (scripts/parity_tpu.py: 2% on the median, the 30% attractor
+# cut on each QoI) and phase 16's band on each profile rel-L2; tune_r5's
+# candidates, the floor on the finite share of its rows and the r5 sweep that
+# the script's defaults reproduce (its candidates below 256 are those of
+# -n 256); diagnose_breathing's short lax-route run; kernel_bench's batch and
+# steps, and the bound on its time a step against the same run timed launch by
+# launch, and on its first launches (healthy rows, as phase 6's) against phase 6
+STUDY_R5_ANCHORS = Path("runs") / "r5" / "anchors.json"
+STUDY_R5_TUNE = Path("runs") / "r5" / "tune_b_w093.json"
+STUDY_MEDIAN_TOL = 0.02
+STUDY_EACH_TOL = 0.30
+STUDY_PROFILE_GATE = (0.75, 1.25)
+STUDY_TUNE_N = 256
+STUDY_TUNE_FINITE = 0.95
+STUDY_LAX_BREATHING = ["--every", "7", "--duration", "1.5e-6"]
+STUDY_BENCH = (1024, 20000)
+STUDY_BENCH_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -1325,6 +1361,186 @@ def workflow_phase(thruster_inputs: dict, tree_kw: dict) -> tuple:
     return rec, [entries[(0, 0)], entries[(1, 1)]]
 
 
+def study_phase(kstep_us: float) -> dict:
+    """Phase 19: the SPT-100 physics studies of ``hallthrusterpem_tpu_torch/scripts``
+    on the card, each through its ``main``; ``kstep_us`` is phase 6's µs a step.
+    Returns the ``{"studies": ...}`` record, with each study's ``kstep`` launches."""
+    import numpy as np
+    import torch
+
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from hallthrusterpem_tpu_torch.scripts import (_spt100, anchors, diagnose_breathing, diagnose_current,
+                                                   kernel_bench, probe_anode_zone, probe_anom_shape, probe_uion,
+                                                   tune_r5)
+
+    t_phase = time.perf_counter()
+    work = Path("build") / "studies"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rec: dict = {"launches": {}}
+    finite = lambda *xs: bool(all(np.all(np.isfinite(np.asarray(x, dtype=np.float64))) for x in xs))
+
+    def run(name, fn):
+        """``fn()``, its seconds (to a sync) and its kstep launches, recorded under ``name``."""
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall, n = time.perf_counter() - t0, _kernels.launch_counts["kstep"]
+        rec["launches"][name] = n
+        rec[name] = {"wall_s": wall, "kstep_launches": n}
+        return result, wall, n
+
+    # ---- (a) anchors, uncut: 10 conditions, B = 10, 2e-3 s; gated against the TPU artifact
+    art, wall, n = run("anchors", lambda: anchors.main(["-o", str(work / "anchors.json")]))
+    r5 = {c["name"]: c for c in json.loads(STUDY_R5_ANCHORS.read_text())["conditions"]}
+    assert len(art["conditions"]) == 10 and {c["name"] for c in art["conditions"]} == set(r5), list(r5)
+    scalar_dev, profile_ratio, misses = {}, {}, []
+    for c in art["conditions"]:
+        for q, v in c["qois"].items():
+            ref = r5[c["name"]]["qois"][q]
+            if "model" in v:
+                assert math.isfinite(v["model"]), (c["name"], q, v)
+                scalar_dev[f"{c['name']}.{q}"] = abs(v["model"] - ref["model"]) / abs(ref["model"])
+                line = f"model {v['model']:.5g} (r5 {ref['model']:.5g}), error {v['rel_err']:.4f}"
+            else:
+                assert math.isfinite(v["rel_l2"]), (c["name"], q, v)
+                profile_ratio[c["name"]] = v["rel_l2"] / ref["rel_l2"]
+                line = f"rel-L2 {v['rel_l2']:.4f} (r5 {ref['rel_l2']:.4f})"
+            if not v["pass"]:
+                misses.append(f"{c['name']}.{q}")
+            log(f"[19a anchors]   {c['name']:30s} {q:6s} {line}, tolerance {v['tol']:g}: "
+                f"{'pass' if v['pass'] else 'MISS'}")
+    median_dev = float(np.median(list(scalar_dev.values())))
+    worst = max(scalar_dev, key=scalar_dev.get)
+    rec["anchors"].update(
+        conditions=len(art["conditions"]), table_pass=art["pass"], table_misses=misses,
+        device=art["device"], power_limit=art["power_limit"], median_scalar_dev_vs_r5=median_dev,
+        max_scalar_dev_vs_r5=scalar_dev[worst], max_scalar_dev_qoi=worst, profile_ratio_vs_r5=profile_ratio)
+    log(f"[19a anchors] {len(art['conditions'])} conditions, B=10, 2e-3 s: {wall:.2f} s, {n} kstep launches; "
+        f"against runs/r5/anchors.json (TPU): scalar QoIs median deviation {median_dev:.4f} (tolerance "
+        f"{STUDY_MEDIAN_TOL:g}), largest {scalar_dev[worst]:.4f} at {worst} (tolerance {STUDY_EACH_TOL:g}), "
+        f"profile rel-L2 ratios " + ", ".join(f"{k} {v:.3f}" for k, v in profile_ratio.items())
+        + f" (band {STUDY_PROFILE_GATE}); the table's own verdict: {'PASS' if art['pass'] else 'FAIL'}"
+        + (f", missed {misses}" if misses else ""))
+    assert median_dev <= STUDY_MEDIAN_TOL and scalar_dev[worst] <= STUDY_EACH_TOL, scalar_dev
+    lo, hi = STUDY_PROFILE_GATE
+    assert all(lo <= r <= hi for r in profile_ratio.values()), profile_ratio
+
+    # ---- (b) tune_r5 -n 256, uncut: 768 rows at 2e-3 s in one batch
+    res, wall, n = run("tune_r5", lambda: tune_r5.main(["-n", str(STUDY_TUNE_N),
+                                                         "-o", str(work / "tune_nominals.json")]))
+    out = res["out"]
+    n_rows = int(out["thrust"].shape[0])
+    ok = np.isfinite(out["thrust"]) & np.isfinite(out["discharge_current"]) & np.isfinite(out["ion_current"])
+    r5t = json.loads(STUDY_R5_TUNE.read_text())
+    assert (r5t["frac"], r5t["width"], r5t["wall_recycling"]) == (0.55, 1.5e-3, 0.93), r5t["box"]
+    assert r5t["box"] == {k: list(v[:2]) for k, v in tune_r5.BOX.items()}, r5t["box"]
+    ours = {r["idx"]: r for r in res["rows"]}
+    devs, both = [], 0
+    for r in r5t["rows"]:
+        o = ours.get(r["idx"]) if r["idx"] < STUDY_TUNE_N else None
+        if o is None or not (math.isfinite(o["score"]) and math.isfinite(r["score"])):
+            continue
+        assert all(o[k] == r[k] for k in tune_r5.BOX), (o, r)
+        both += 1
+        devs += [abs(o[f"{q}_err"] - r[f"{q}_err"]) / (1 + r[f"{q}_err"]) for q in ("T", "I_d", "I_B0", "eta_m")]
+        devs += [abs(a - b) / b for a, b in zip(o["uion_rel_l2"], r["uion_rel_l2"])]
+    tune_dev = float(np.median(devs))
+    sim_ms = n_rows * _spt100.DURATION * 1e3
+    best = res["rows"][0]
+    rec["tune_r5"].update(rows=n_rows, finite_rows=int(ok.sum()), solve_s=res["wall_s"],
+                          sim_ms_per_s=sim_ms / res["wall_s"], rows_per_s=n_rows / res["wall_s"],
+                          finite_scores=sum(math.isfinite(r["score"]) for r in res["rows"]),
+                          candidates_vs_r5=both, median_table_dev_vs_r5=tune_dev,
+                          best={k: best[k] for k in ("idx", "T_err", "I_d_err", "I_B0_err", "eta_m_err",
+                                                     "uion_rel_l2", "score")})
+    log(f"[19b tune_r5] -n {STUDY_TUNE_N}: {n_rows} rows at {_spt100.DURATION:g} s in {res['wall_s']:.2f} s "
+        f"({sim_ms / res['wall_s']:.2f} sim-ms/s, {n_rows / res['wall_s']:.2f} rows/s), {n} kstep launches, "
+        f"finite rows {int(ok.sum())}/{n_rows} (floor {STUDY_TUNE_FINITE:.0%}); {both} candidates finite here and "
+        f"in runs/r5/tune_b_w093.json's best 50: median table deviation {tune_dev:.4f} (tolerance "
+        f"{STUDY_MEDIAN_TOL:g}); best here idx {best['idx']}, score {best['score']:.3f}")
+    assert ok.mean() >= STUDY_TUNE_FINITE and both > 0 and tune_dev <= STUDY_MEDIAN_TOL, (ok.mean(), both, tune_dev)
+
+    # ---- (c) probe_uion, diagnose_current, probe_anom_shape, probe_anode_zone at their full 2e-3 s
+    rep, wall, n = run("probe_uion", lambda: probe_uion.main(["-o", str(work / "uion_probe")]))
+    rec["probe_uion"]["rel_l2"] = [e["rel_l2"] for e in rep]
+    assert len(rep) == 3 and finite([e["rel_l2"] for e in rep], [e["u_model"] for e in rep]), rep
+    cur, wall, n = run("diagnose_current", lambda: diagnose_current.main([]))
+    o = cur["out"]
+    rec["diagnose_current"].update(steps=cur["cfg"].num_steps, T=float(o["thrust"]),
+                                   I_d=float(o["discharge_current"]), I_B0=float(o["ion_current"]))
+    assert finite(o["thrust"], o["discharge_current"], o["ion_current"], o["ne"], o["Tev"]), o["thrust"]
+    anom, wall, n = run("probe_anom_shape", lambda: probe_anom_shape.main(["-o", str(work / "anom_shape")]))
+    rows_ok = [finite(c["uion_rel_l2"], c["T_rel_err"], c["I_d_rel_err"], c["I_B0_rel_err"]) for c in anom["cases"]]
+    rec["probe_anom_shape"]["finite_rows"] = f"{sum(rows_ok)}/{len(rows_ok)}"
+    assert any(rows_ok), anom["cases"]
+    zone, wall, n = run("probe_anode_zone", lambda: probe_anode_zone.main(["-o", str(work / "anode_zone.json")]))
+    rows_ok = [finite(c["uion_rel_l2"][i]) for c in zone for i in range(3)]
+    rec["probe_anode_zone"]["finite_rows"] = f"{sum(rows_ok)}/{len(rows_ok)}"
+    assert any(rows_ok), zone
+    for name in ("probe_uion", "diagnose_current", "probe_anom_shape", "probe_anode_zone"):
+        r = rec[name]
+        log(f"[19c {name}] {r['wall_s']:.2f} s, {r['kstep_launches']} kstep launches"
+            + (f", finite rows {r['finite_rows']}" if "finite_rows" in r else ""))
+        assert r["kstep_launches"] > 0, name
+
+    # ---- (d) diagnose_breathing at its defaults through the K-step route; a short lax-route run
+    br, wall, n = run("diagnose_breathing", lambda: diagnose_breathing.main([]))
+    cfg = br["cfg"]
+    rec["diagnose_breathing"].update(route=br["route"], steps=cfg.num_steps, snapshots=br["stats"]["n_snap"],
+                                     stats=br["stats"])
+    log(f"[19d diagnose_breathing] route {br['route']}, {cfg.num_cells} cells, {cfg.ncharge} charge state(s), "
+        f"{cfg.num_steps} steps: {wall:.2f} s, {n} kstep launches, {br['stats']['n_snap']} snapshots; dominant "
+        f"frequency {br['stats'].get('dominant_kHz', float('nan')):.1f} kHz, I_B mean {br['stats']['I_B']['mean']:.3f} A")
+    every = diagnose_breathing.parser.get_default("every")
+    assert br["route"] == "kstep" and n == br["stats"]["n_snap"] * every // fs.INNER_STEPS, (br["route"], n)
+    assert finite(*br["snaps"].values())
+    lax, wall, n = run("diagnose_breathing_lax", lambda: diagnose_breathing.main(STUDY_LAX_BREATHING))
+    rec["diagnose_breathing_lax"].update(route=lax["route"], steps=lax["cfg"].num_steps,
+                                         snapshots=lax["stats"]["n_snap"])
+    log(f"[19d diagnose_breathing] {' '.join(STUDY_LAX_BREATHING)}: route {lax['route']}, "
+        f"{lax['stats']['n_snap']} snapshots of 7 steps, {wall:.2f} s, {n} kstep launches")
+    assert lax["route"] == "lax" and n == 0 and finite(*lax["snaps"].values())
+
+    # ---- (e) kernel_bench at B = 1024, 20,000 steps: CUDA events around each run, after a
+    # warm-up; then the same run launch by launch, an event between launches
+    bench_b, bench_steps = STUDY_BENCH
+    kb, wall, n = run("kernel_bench", lambda: kernel_bench.main([str(bench_b), str(bench_steps)]))
+    cfg, params, base_B = kernel_bench.bench_inputs(bench_b, bench_steps, torch.device("cuda", 0))
+    consts, state, prof, sacc = fs.init_carry(params, base_B, cfg)
+    K = fs.INNER_STEPS
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(math.ceil(bench_steps / K) + 1)]
+    events[0].record()
+    for j, i0 in enumerate(range(0, bench_steps, K)):
+        fs.kstep(state, prof, sacc, consts, i0, K, cfg, None)
+        events[j + 1].record()
+    torch.cuda.synchronize()
+    per_launch = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    us = lambda ms: ms / K * 1e3
+    run_us, first_us, last_us = (us(float(np.mean(x))) for x in (per_launch, per_launch[:20], per_launch[-20:]))
+    failed = float((sacc[:, fs.A_FAILED] > 0.5).float().mean())
+    rec["kernel_bench"].update(batch=bench_b, steps=bench_steps, launches_a_run=kb["launches"],
+                               us_per_step=kb["us_per_step"], reps=kb["reps"], phase6_us_per_step=kstep_us,
+                               ratio_to_phase6=kb["us_per_step"] / kstep_us, per_launch_us_per_step=run_us,
+                               first_20_launches_us_per_step=first_us, last_20_launches_us_per_step=last_us,
+                               failed_rows_at_end=failed)
+    log(f"[19e kernel_bench] B={bench_b}, {bench_steps} steps, {kb['launches']} launches a run: "
+        f"{kb['us_per_step']:.2f} us/step (least of {len(kb['reps'])}; finite rows {kb['reps'][-1]['finite']:.2f}), "
+        f"{kb['us_per_step'] / kstep_us:.4f}x phase 6's {kstep_us:.2f}; the same run launch by launch: "
+        f"{run_us:.2f} us/step (tolerance {STUDY_BENCH_TOL:g} against the run's), the first 20 launches "
+        f"{first_us:.2f} (all rows healthy, as in phase 6: tolerance {STUDY_BENCH_TOL:g} against phase 6), "
+        f"the last 20 {last_us:.2f} with {failed:.0%} of the rows failed")
+    assert n == len(kb["reps"]) * kb["launches"] == len(kb["reps"]) * len(per_launch), (n, kb["launches"])
+    assert abs(kb["us_per_step"] / run_us - 1) <= STUDY_BENCH_TOL, (kb["us_per_step"], run_us)
+    assert abs(first_us / kstep_us - 1) <= STUDY_BENCH_TOL, (first_us, kstep_us)
+
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[19 studies] done ({rec['wall_s']:.2f} s)")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -1672,6 +1888,9 @@ def main() -> int:
     parallel = parallel_phase(pem, main_inputs, main_out, n_launch, kstep_ms)
     # ---- 18. the workflow scripts (on phase 9's inputs for the sharded wrapper)
     workflow, low_fidelity_kernels = workflow_phase(thruster_inputs(42), tree_kw)
+    # ---- 19. the physics studies
+    studies = study_phase(kstep_ms / K * 1e3)
+    low_fidelity_kernels[0]["launches_diagnose_breathing"] = studies["launches"]["diagnose_breathing"]
 
     kernels = [{
         "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1680,6 +1899,7 @@ def main() -> int:
         "launches_two_shards": parallel["two_shards"]["kstep_launches"],
         "launches_gen_data": workflow["gen_data"]["kstep_launches"],
         "launches_fit_surr": workflow["fit_surr"]["kstep_launches"],
+        **{f"launches_{k}": v for k, v in studies["launches"].items() if not k.startswith("diagnose_breathing")},
         "max_abs_err": max_abs, "max_scaled_err": max_err,
         "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
@@ -1701,6 +1921,7 @@ def main() -> int:
     print(json.dumps({"uq": uq}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"workflow": workflow}), flush=True)
+    print(json.dumps({"studies": studies}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,6 +6,7 @@ AVOGADRO_CONSTANT = 6.02214076e23  # 1/mol
 FUNDAMENTAL_CHARGE = 1.602176634e-19  # C
 ELECTRON_MASS = 9.1093837015e-31  # kg
 BOLTZMANN_CONSTANT = 1.380649e-23  # J/K
+EPSILON_0 = 8.8541878128e-12  # F/m
 
 # g/mol for common propellants
 MOLECULAR_WEIGHTS = {

@@ -139,6 +139,20 @@ class Component:
             return float(np.mean([t / max(n, 1) for (n, t) in self.model_costs.values()]))
         return 1.0
 
+    def _model(self, inputs: Dataset, alpha: Optional[tuple] = None, **kwargs) -> Dataset:
+        """Legacy entry point: :meth:`call_model` at fidelity ``alpha``."""
+        return self.call_model(inputs, model_fidelity=alpha, **kwargs)
+
+    @property
+    def max_refine(self) -> tuple:
+        """The highest fidelity index: the component's model fidelity."""
+        return tuple(self.model_fidelity)
+
+    @property
+    def truth_alpha(self) -> tuple:
+        """The fidelity of the true model: the component's model fidelity."""
+        return tuple(self.model_fidelity)
+
     def to_dict(self) -> dict:
         from hallthrusterpem_tpu_torch.core.json_loader import variable_to_dict
 

@@ -132,6 +132,33 @@ class System:
         consumed = {n for comp in self.components for n in comp.input_names()}
         return [v for v in self.outputs() if v.name in consumed]
 
+    @property
+    def variables(self) -> dict[str, Variable]:
+        """Every variable of the system by name (a copy of the registry)."""
+        return dict(self._variables)
+
+    # the reference's legacy accessors (its monte_carlo.py and mcmc.py read them)
+    @property
+    def exo_vars(self) -> list[Variable]:
+        return self.inputs()
+
+    @property
+    def x_vars(self) -> list[Variable]:
+        return self.inputs()
+
+    @property
+    def refine_level(self) -> int:
+        """Completed refinement iterations: the length of ``train_history``."""
+        return len(self.train_history)
+
+    @property
+    def build_metrics(self) -> dict:
+        """``train_history`` as the legacy ``{"train_record", "test_stats"}`` view."""
+        return {
+            "train_record": self.train_history,
+            "test_stats": [h.get("test_error", {}) for h in self.train_history],
+        }
+
     # ------------------------------------------------------------------ sampling
     def sample_inputs(
         self,

@@ -347,6 +347,11 @@ class Variable:
             return self.distribution.bounds(self.nominal)
         return None
 
+    def bounds(self) -> Optional[tuple[float, float]]:
+        """Legacy alias of :meth:`get_domain` (the reference's mcmc.py reads it);
+        a distribution's own ``bounds(nominal)`` is its support."""
+        return self.get_domain()
+
     def sample_domain(self, generator: torch.Generator, shape) -> torch.Tensor:
         """Uniform draws over the (denormalized) domain, float32 on the CPU."""
         dom = self.get_domain()
@@ -398,3 +403,18 @@ class Variable:
         if units and self.units:
             label = f"{label} [{self.units}]"
         return label
+
+    def to_tex(self, **kwargs) -> str:
+        return self.get_tex(**kwargs)
+
+    @property
+    def mu(self):
+        """The distribution's mean where it has one, else the nominal."""
+        if self.distribution is not None:
+            return self.distribution.mu
+        return self.nominal
+
+    @property
+    def param_type(self) -> str:
+        """Legacy category accessor: the category, or 'output' without one."""
+        return self.category or "output"

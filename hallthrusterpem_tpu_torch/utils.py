@@ -9,7 +9,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load_thruster", "device_dir", "resolve_device"]
+__all__ = ["load_thruster", "load_device", "device_dir", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,3 +50,7 @@ def load_thruster(thruster_dir: str | Path, thruster_filename: str = "thruster.j
         return node
 
     return rewrite(config)
+
+
+#: the reference's name for :func:`load_thruster`
+load_device = load_thruster

@@ -1,9 +1,9 @@
 """The port and chip_smoke.py import without JAX, optax, PyYAML, h5py, pandas,
 matplotlib or the JAX package: the machine with the card has none of them. Every
 module of the port is imported, the System layer's, the surrogates', the data
-loaders', UQ's, the scripts' (the workflow scripts among them), the plots' and
-the parallel layer's among them
-(scipy is allowed: the card's machine has it)."""
+loaders', UQ's, the scripts' (the workflow scripts and the physics studies among
+them), the plots' and the parallel layer's among them (scipy is allowed: the
+card's machine has it)."""
 
 import subprocess
 import sys
@@ -38,7 +38,7 @@ def test_port_imports_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = set(proc.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 65
+    assert len(names) >= 74
     pkg = "hallthrusterpem_tpu_torch."
     assert {pkg + m for m in ("ops.tridiag", "ops.svd", "models.fake_thruster", "core.dataset", "core.variables",
                               "core.component", "core.system", "core.json_loader", "surrogate",
@@ -50,5 +50,8 @@ def test_port_imports_without_jax():
                               "scripts.continue_mcmc", "scripts.gen_data", "scripts.fit_surr",
                               "scripts.plot_slice", "scripts.gen_mlp_data", "scripts.trim_domain",
                               "scripts.remask_validity", "scripts.surr_report", "scripts.validate_solver",
-                              "scripts.debug", "scripts.install_solver", "viz", "parallel", "parallel.mesh",
+                              "scripts.debug", "scripts.install_solver", "scripts._spt100", "scripts.anchors",
+                              "scripts.probe_uion", "scripts.diagnose_current", "scripts.probe_anom_shape",
+                              "scripts.probe_anode_zone", "scripts.tune_r5", "scripts.diagnose_breathing",
+                              "scripts.kernel_bench", "viz", "parallel", "parallel.mesh",
                               "parallel.distributed")} <= names
