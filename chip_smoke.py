@@ -36,12 +36,15 @@ Phases, each printed with its seconds:
 11. the one-step kernel's time per launch, its plain version's and its bound;
 12. the lax solver (fidelity (2,2), B = 8, 200 steps) on the card against the
     same code on the host CPU: in float64, the config's own precision, which
-    routes it to the lax solver, and in float32 through ``solver`` directly;
+    routes it to the lax solver, and in float32 through ``solver`` directly; on
+    the card its replayed CUDA graphs against its eager route, bit for bit;
 13. the full-width lax path: ``CoupledPEM(model_fidelity=(4,2))`` (300 cells + 2
-    ghosts, 3 charge states) at B = 1024 for 2,000 steps, in one segment and in
-    500-step chunks (equal outputs), timed, and the card's busy time a step
-    from a ``torch.profiler`` trace of 20 of its steps; then float64 at
-    fidelity (2,2), B = 1024, 500 steps, timed;
+    ghosts, 3 charge states) at B = 1024 for 2,000 steps through the CUDA
+    graphs in one segment and in 500-step chunks, and through the eager route,
+    all three equal bit for bit, timed; then float64 at fidelity (2,2),
+    B = 1024, 500 steps, timed; the capture's seconds and ``LAX_REPLAYS``
+    replays of one graph timed, and the card's busy time a step from
+    ``torch.profiler`` traces of one replay and of 20 eager steps;
 14. the System path: the pem_v0 SPT-100 JSON configuration, its Thruster cut to
     ``WRAPPER_DURATION``, ``sample_inputs(256)`` and ``predict(use_model="best")``
     through the K-step kernel, held equal to a direct ``hallthruster_jl`` call;
@@ -115,12 +118,22 @@ Phases, each printed with its seconds:
     timed launch by launch, and the first 20 launches (every row still healthy,
     as in phase 6) within ``STUDY_BENCH_TOL`` of phase 6's; most of the
     configuration's rows fail within ~1,200 steps (dt 5e-9 s at 200 cells), and
-    a step of the kernel then costs more, so the whole run is not held to phase 6.
+    a step of the kernel then costs more, so the whole run is not held to phase 6;
+20. (a) ``parity_tpu`` (the K-step kernel, ``kstep<3,1>`` and ``kstep<3,2>``,
+    against the lax solver's CUDA graphs, B = 32): every config over ~1,100
+    steps, T, I_d, I_B0 within ``QOI_RTOL``; ``run_config`` on ``PARITY_FIRST``
+    at a horizon cut to ``PARITY_DURATION`` (uncut 2e-3 s), the script's own
+    verdicts recorded beside those of the kernel against itself with V_a one
+    ulp apart (which misses them too at a cut horizon); (b)
+    ``gen_mlp_data`` labels ``SWEEP_ROWS`` rows through ``kstep`` into
+    ``build/sweep/``, ``mlp_sweep`` fits ``SWEEP_VARIANTS`` (their steps cut to
+    ``SWEEP_STEPS``) scored on r5's test set, and the saved best reloads bit for
+    bit.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
 line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"studies": {...}}``
-line (phase 19), a ``{"kernels": [...]}``
+line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), a ``{"kernels": [...]}``
 line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -163,6 +176,7 @@ LAX_BATCH = 1024
 LAX_WIDE_STEPS = 2000
 LAX_CHUNK = 500
 LAX_TRACE_STEPS = 20
+LAX_REPLAYS = 4  # phase 13: replays of one captured graph, timed
 LAX_F64_STEPS = 500
 SYSTEM_BATCH = 256  # phase 14
 # phase 15: samples labelled and their chunk; the MLP's width, members, steps and
@@ -234,6 +248,19 @@ STUDY_TUNE_FINITE = 0.95
 STUDY_LAX_BREATHING = ["--every", "7", "--duration", "1.5e-6"]
 STUDY_BENCH = (1024, 20000)
 STUDY_BENCH_TOL = 0.05
+# phase 20: parity_tpu at B = 32: every config over ~1,100 steps; run_config
+# at a horizon cut to the guards' floor (uncut 2e-3 s: ~913,661 steps, ~22 min
+# of lax a config) on the nominal and the two-group configs, beside the kernel
+# against itself with V_a one ulp apart; the MLP sweep's labelled rows (r5:
+# ~49k), variants and steps
+PARITY_BATCH = 32
+PARITY_SHORT = 2.5e-6
+PARITY_DURATION = 2e-4
+PARITY_FIRST = ("nominal_300V_5.16mg", "two_group_nominal")
+PARITY_ULP = 2.0**-22
+SWEEP_ROWS = 1024
+SWEEP_VARIANTS = ("base6k", "wide512")
+SWEEP_STEPS = 300
 
 
 def log(msg: str) -> None:
@@ -401,23 +428,41 @@ def kstep_bound(fs, kernels, carry, cfg, physics) -> dict:
             "ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms, "ops_per_step": ops2 - ops1}
 
 
-def lax_card_vs_cpu(cfg, params, base_B, n_steps: int) -> float:
-    """Phase 12 for one config: ``n_steps`` lax-solver steps on the card and on
-    the host CPU from the same inputs; the largest scaled error over the state
-    and the running sums (the failure flags must agree)."""
+def same_carry(solver, a, b) -> bool:
+    """Two lax carries equal bit for bit (NaN where NaN)."""
+    return all(same_bits(x, y) for x, y in zip(solver._leaves(a), solver._leaves(b)))
+
+
+def lax_card_vs_cpu(cfg, params, base_B, n_steps: int) -> tuple:
+    """Phase 12 for one config: ``n_steps`` lax-solver steps on the card
+    (replayed CUDA graphs, then the eager route from the same carry) and on the
+    host CPU from the same inputs. Returns the largest scaled error of the
+    card's graphed carry against the host's over the state and the running sums
+    (the failure flags must agree), whether the graphed carry equals the eager
+    one bit for bit, and both routes' seconds (the graphs' with their capture)."""
     import torch
 
     from hallthrusterpem_tpu_torch.models.thruster import solver
 
-    carries = []
-    for p, b in ((params, base_B), ({k: v.cpu() for k, v in params.items()}, base_B.cpu())):
-        carries.append(solver._segment_batch(p, b, solver._init_batch(p, b, cfg), cfg, n_steps))
-    (card_state, card_acc, _, card_failed), (cpu_state, cpu_acc, _, cpu_failed) = carries
+    carry = solver._init_batch(params, base_B, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = solver._segment_batch(params, base_B, carry, cfg, n_steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eager = solver._segment_batch_eager(params, base_B, carry, cfg, n_steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cpu_p, cpu_b = {k: v.cpu() for k, v in params.items()}, base_B.cpu()
+    cpu = solver._segment_batch(cpu_p, cpu_b, solver._init_batch(cpu_p, cpu_b, cfg), cfg, n_steps)
+    (card_state, card_acc, card_i, card_failed), (cpu_state, cpu_acc, _, cpu_failed) = card, cpu
+    assert int(card_i) == n_steps, int(card_i)
     assert torch.equal(card_failed.cpu(), cpu_failed), "failure flags differ"
     pairs = list(zip(card_state, cpu_state)) + [(card_acc[k], cpu_acc[k]) for k in cpu_acc]
     for got, _ in pairs:
         assert got.device.type == params["V_d"].device.type and got.dtype == solver._dtype(cfg)
-    return max(scaled_err(got.cpu(), ref) for got, ref in pairs)
+    return (max(scaled_err(got.cpu(), ref) for got, ref in pairs), same_carry(solver, card, eager),
+            t1 - t0, t2 - t1)
 
 
 def device_busy(fn) -> tuple:
@@ -456,7 +501,8 @@ def lax_phases(kstep_us: float) -> dict:
 
     dev, sync, batch = torch.device("cuda"), torch.cuda.synchronize, LAX_BATCH
     record = {}
-    # ---- 12. lax on the card against lax on the host CPU: fidelity (2,2), B = 8
+    # ---- 12. lax on the card against lax on the host CPU: fidelity (2,2), B = 8;
+    # on the card, the replayed graphs against the eager route bit for bit
     t0 = time.perf_counter()
     pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-5, device=dev)
     inp = default_coupled_inputs(LAX_PARITY_BATCH, torch.Generator().manual_seed(12), spread=0.08, device=dev)
@@ -465,15 +511,20 @@ def lax_phases(kstep_us: float) -> dict:
                                   duration=LAX_PARITY_STEPS * pem.cfg.dt)
         assert thruster.uses_lax_solver(cfg) == (dtype == "float64")
         params, _ = _coupled_pre(inp, cfg)
-        err = lax_card_vs_cpu(cfg, params, pem.base_B, LAX_PARITY_STEPS)
+        err, equal, graph_s, eager_s = lax_card_vs_cpu(cfg, params, pem.base_B, LAX_PARITY_STEPS)
         record[f"card_vs_cpu_scaled_err_{dtype}"] = err
+        record[f"graph_equals_eager_{dtype}"] = equal
+        record[f"parity_graph_s_{dtype}"], record[f"parity_eager_s_{dtype}"] = graph_s, eager_s
         log(f"[12 lax parity] {dtype}, {cfg.num_cells} cells, {cfg.ncharge} charge states, "
             f"B={LAX_PARITY_BATCH}, {LAX_PARITY_STEPS} steps: card vs host CPU max scaled error {err:.3e} "
-            f"(tolerance {LAX_TOL[dtype]:g})")
+            f"(tolerance {LAX_TOL[dtype]:g}); on the card the CUDA graphs ({graph_s:.3f} s with their capture) "
+            f"{'equal' if equal else 'DIFFER FROM'} the eager route ({eager_s:.3f} s) bit for bit")
         assert err < LAX_TOL[dtype], (dtype, err)
+        assert equal, f"{dtype}: graphed lax steps differ from the eager ones"
     log(f"[12 lax parity] done ({time.perf_counter() - t0:.2f} s)")
 
-    # ---- 13. the full-width lax path: CoupledPEM at fidelity (4,2), B = 1024
+    # ---- 13. the full-width lax path: CoupledPEM at fidelity (4,2), B = 1024,
+    # replayed graphs (monolithic, chunked) and the eager route, all equal bit for bit
     t0 = time.perf_counter()
     probe = CoupledPEM(thruster="SPT-100", model_fidelity=(4, 2), duration=1e-6, device=dev)
     wide = CoupledPEM(thruster="SPT-100", model_fidelity=(4, 2), duration=LAX_WIDE_STEPS * probe.cfg.dt,
@@ -482,33 +533,40 @@ def lax_phases(kstep_us: float) -> dict:
     inp = default_coupled_inputs(batch, torch.Generator().manual_seed(13), spread=0.08, device=dev)
     _kernels.reset_counts()
     runs = {}
-    for label, chunk_steps in (("monolithic", None), ("chunked", LAX_CHUNK)):
-        t1 = time.perf_counter()
-        runs[label] = wide(inp, chunk_steps=chunk_steps)
-        sync()
-        runs[label + "_s"] = time.perf_counter() - t1
+    graphed = solver._segment_batch
+    for label, chunk_steps, segment in (("monolithic", None, graphed), ("chunked", LAX_CHUNK, graphed),
+                                        ("eager", None, solver._segment_batch_eager)):
+        solver._segment_batch = segment
+        try:
+            t1 = time.perf_counter()
+            runs[label] = wide(inp, chunk_steps=chunk_steps)
+            sync()
+            runs[label + "_s"] = time.perf_counter() - t1
+        finally:
+            solver._segment_batch = graphed
     assert _kernels.launch_counts == {"kstep": 0, "step": 0}, _kernels.launch_counts
-    mono, chunked = runs["monolithic"], runs["chunked"]
-    for k in mono:
-        assert torch.equal(torch.nan_to_num(mono[k]), torch.nan_to_num(chunked[k])) and torch.equal(
-            torch.isnan(mono[k]), torch.isnan(chunked[k])), f"chunked run differs in {k}"
+    mono = runs["monolithic"]
+    for label in ("chunked", "eager"):
+        diff = [k for k in mono if not same_bits(mono[k], runs[label][k])]
+        assert not diff, f"the {label} run differs from the monolithic graphed one in {diff}"
     n_ok = int(torch.isfinite(mono["T"]).sum())
-    # the rates use the faster run: the first one also grows the allocator's pool
-    wall = min(runs["monolithic_s"], runs["chunked_s"])
+    steps = wide.cfg.num_steps
     wide_rec = {"num_cells": wide.cfg.num_cells, "ncharge": wide.cfg.ncharge, "batch": batch,
-                "duration_s": wide.cfg.duration, "steps": wide.cfg.num_steps, "wall_s": runs["monolithic_s"],
-                "wall_chunked_s": runs["chunked_s"], "chunk_steps": LAX_CHUNK,
-                "ms_per_step": wall / wide.cfg.num_steps * 1e3,
-                "sim_ms_per_s": batch * wide.cfg.duration * 1e3 / wall, "finite": n_ok}
+                "duration_s": wide.cfg.duration, "steps": steps, "graph_steps": solver.GRAPH_STEPS,
+                "wall_s": runs["monolithic_s"], "wall_chunked_s": runs["chunked_s"], "chunk_steps": LAX_CHUNK,
+                "wall_eager_s": runs["eager_s"], "ms_per_step": runs["monolithic_s"] / steps * 1e3,
+                "eager_ms_per_step": runs["eager_s"] / steps * 1e3,
+                "sim_ms_per_s": batch * wide.cfg.duration * 1e3 / runs["monolithic_s"],
+                "eager_sim_ms_per_s": batch * wide.cfg.duration * 1e3 / runs["eager_s"], "finite": n_ok}
     record["fidelity_4_2_float32"] = wide_rec
     log(f"[13 lax wide] CoupledPEM fidelity (4,2): {wide.cfg.num_cells} cells + 2 ghosts, {wide.cfg.ncharge} "
-        f"charge states, B={batch}, duration {wide.cfg.duration:.4e} s = {wide.cfg.num_steps} steps: wall "
-        f"{runs['monolithic_s']:.3f} s monolithic, {runs['chunked_s']:.3f} s in {LAX_CHUNK}-step chunks (equal "
-        f"outputs); at the faster: "
-        f"{wide_rec['ms_per_step']:.3f} ms/step, {wide_rec['sim_ms_per_s']:.3f} sim-ms/s, finite {n_ok}/{batch} "
-        f"(kstep at fidelity (2,2): {kstep_us:.2f} us/step)")
+        f"charge states, B={batch}, duration {wide.cfg.duration:.4e} s = {steps} steps: CUDA graphs of "
+        f"{solver.GRAPH_STEPS} steps {runs['monolithic_s']:.3f} s monolithic ({wide_rec['ms_per_step']:.3f} "
+        f"ms/step, {wide_rec['sim_ms_per_s']:.3f} sim-ms/s, capture included), {runs['chunked_s']:.3f} s in "
+        f"{LAX_CHUNK}-step chunks; eager {runs['eager_s']:.3f} s ({wide_rec['eager_ms_per_step']:.3f} ms/step); "
+        f"all three equal bit for bit; finite {n_ok}/{batch} (kstep at fidelity (2,2): {kstep_us:.2f} us/step)")
     assert n_ok >= batch - 10, n_ok
-    del runs, mono, chunked
+    del runs, mono
     t1 = time.perf_counter()
     pem64 = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=LAX_F64_STEPS * pem.cfg.dt,
                        device=dev)
@@ -524,25 +582,49 @@ def lax_phases(kstep_us: float) -> dict:
                "ms_per_step": wall / pem64.cfg.num_steps * 1e3,
                "sim_ms_per_s": batch * pem64.cfg.duration * 1e3 / wall, "finite": n_ok}
     record["fidelity_2_2_float64"] = f64_rec
-    log(f"[13 lax float64] CoupledPEM fidelity (2,2) in float64, B={batch}, {pem64.cfg.num_steps} steps: wall "
-        f"{wall:.3f} s, {f64_rec['ms_per_step']:.3f} ms/step, {f64_rec['sim_ms_per_s']:.3f} sim-ms/s, "
-        f"finite {n_ok}/{batch}, outputs float64")
+    log(f"[13 lax float64] CoupledPEM fidelity (2,2) in float64, B={batch}, {pem64.cfg.num_steps} steps, CUDA "
+        f"graphs: wall {wall:.3f} s with the capture, {f64_rec['ms_per_step']:.3f} ms/step, "
+        f"{f64_rec['sim_ms_per_s']:.3f} sim-ms/s, finite {n_ok}/{batch}, outputs float64")
     assert n_ok >= batch - 10, n_ok
-    # the card's busy time a step, from a torch.profiler trace of a segment of
-    # the fidelity (4,2) run (its first steps, from the same inputs); after the
-    # timed lax runs, so that no tracing cost can reach them
+    # the capture's seconds and a graph's steady pace on the fidelity (4,2)
+    # inputs: one graph of GRAPH_STEPS steps captured, replayed LAX_REPLAYS times
     params, _ = _coupled_pre(inp, wide.cfg)
     carry = solver._init_batch(params, wide.base_B, wide.cfg)
+    replay = solver._Replay(solver._traced(solver.make_step(params, wide.base_B, wide.cfg)[0], wide.cfg), carry)
+    sync()
+    t1 = time.perf_counter()
+    replay.graph(solver.GRAPH_STEPS)
+    sync()
+    capture_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    replay_card_ms = cuda_ms(lambda: replay.advance(solver.GRAPH_STEPS), LAX_REPLAYS)
+    replay_wall_ms = (time.perf_counter() - t1) * 1e3 / LAX_REPLAYS
+    # the card's busy time a step, from torch.profiler traces (after the timed
+    # runs, so that no tracing cost reaches them): a graphed segment's replay,
+    # then LAX_TRACE_STEPS eager steps from the same inputs
+    busy_ms, traced_ms, n_events = device_busy(lambda: replay.advance(solver.GRAPH_STEPS))
+    assert n_events > 0, "the profiler recorded no activity on the card during a replay"
+    wide_rec.update(capture_s=capture_s, graph_ms_per_step=replay_wall_ms / solver.GRAPH_STEPS,
+                    graph_card_ms_per_step=replay_card_ms / solver.GRAPH_STEPS,
+                    graph_device_ms_per_step=busy_ms / solver.GRAPH_STEPS,
+                    graph_traced_ms_per_step=traced_ms / solver.GRAPH_STEPS,
+                    graph_device_events=n_events, graph_device_busy_share=busy_ms / traced_ms)
+    log(f"[13 lax graph] capture of {solver.GRAPH_STEPS} steps: {capture_s:.3f} s; {LAX_REPLAYS} replays: "
+        f"{wide_rec['graph_ms_per_step']:.3f} ms/step on the host's clock, "
+        f"{wide_rec['graph_card_ms_per_step']:.3f} between CUDA events; torch.profiler trace of one replay: "
+        f"{n_events} events on the card, busy {wide_rec['graph_device_ms_per_step']:.3f} ms/step of "
+        f"{wide_rec['graph_traced_ms_per_step']:.3f} traced: busy share {wide_rec['graph_device_busy_share']:.3f}")
+    del replay
     sync()
     busy_ms, traced_ms, n_events = device_busy(
-        lambda: solver._segment_batch(params, wide.base_B, carry, wide.cfg, LAX_TRACE_STEPS))
+        lambda: solver._segment_batch_eager(params, wide.base_B, carry, wide.cfg, LAX_TRACE_STEPS))
     assert n_events > 0, "the profiler recorded no activity on the card"
     wide_rec.update(trace_steps=LAX_TRACE_STEPS, trace_device_events=n_events,
                     device_ms_per_step=busy_ms / LAX_TRACE_STEPS,
                     traced_ms_per_step=traced_ms / LAX_TRACE_STEPS, device_busy_share=busy_ms / traced_ms)
-    log(f"[13 lax wide] torch.profiler trace of {LAX_TRACE_STEPS} steps: {n_events} events on the card, busy "
-        f"{wide_rec['device_ms_per_step']:.3f} ms/step of {wide_rec['traced_ms_per_step']:.3f} ms/step on the "
-        f"host's clock while traced: busy share {wide_rec['device_busy_share']:.3f}")
+    log(f"[13 lax eager] torch.profiler trace of {LAX_TRACE_STEPS} eager steps: {n_events} events on the card, "
+        f"busy {wide_rec['device_ms_per_step']:.3f} ms/step of {wide_rec['traced_ms_per_step']:.3f} ms/step on "
+        f"the host's clock while traced: busy share {wide_rec['device_busy_share']:.3f}")
     del params, carry
     log(f"[13 lax] done ({time.perf_counter() - t0:.2f} s)")
     record["kstep_us_per_step_fidelity_2_2"] = kstep_us
@@ -1541,6 +1623,138 @@ def study_phase(kstep_us: float) -> dict:
     return rec
 
 
+def parity_sweep_phase() -> dict:
+    """Phase 20: (a) ``parity_tpu`` on the card, B = ``PARITY_BATCH``: (i) every
+    config over ~1,100 steps (``PARITY_SHORT``), the lax solver's CUDA graphs
+    against the K-step kernel through ``parity_tpu.solve``, equal finite masks
+    and T, I_d, I_B0 within ``QOI_RTOL``; (ii) ``parity_tpu.run_config`` on
+    ``PARITY_FIRST`` at the cut horizon ``PARITY_DURATION``, the script's own
+    verdicts recorded beside (iii) the same scoring of the kernel against
+    itself with V_a ``PARITY_ULP`` apart; (b) ``gen_mlp_data`` labels
+    ``SWEEP_ROWS`` rows through ``kstep`` into ``build/sweep/``, then
+    ``mlp_sweep`` fits ``SWEEP_VARIANTS`` at their own widths, their steps cut
+    to ``SWEEP_STEPS``, scored on r5's test set, and the saved best reloads bit
+    for bit. Returns the ``{"parity_sweep": ...}`` record."""
+    import numpy as np
+    import torch
+
+    from hallthrusterpem_tpu_torch.core.json_loader import config_dir, load_system
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+    from hallthrusterpem_tpu_torch.scripts import gen_mlp_data, mlp_sweep, parity_tpu
+
+    t_phase = time.perf_counter()
+    dev, sync, B = torch.device("cuda", 0), torch.cuda.synchronize, PARITY_BATCH
+    rec: dict = {"parity": {"batch": B, "short": {}, "duration_s": PARITY_DURATION, "uncut_duration_s": 2e-3,
+                            "configs": [], "kstep_twins": []},
+                 "launches": {"parity": 0, "parity_two_group": 0}}
+
+    def count(cond, n):
+        rec["launches"]["parity_two_group" if cond.get("neutral_groups") == 2 else "parity"] += n
+
+    # ---- (a)(i) every config over ~1,100 steps: the two routes before chaos sets in
+    for cond in parity_tpu.CONFIGS:
+        lax_out, lax_s, steps, _ = parity_tpu.solve(cond, "lax", B, 11, device=dev, duration=PARITY_SHORT)
+        kern_out, _, _, launches = parity_tpu.solve(cond, "kstep", B, 11, device=dev, duration=PARITY_SHORT)
+        count(cond, launches)
+        fin = np.isfinite(lax_out["T"])
+        assert np.array_equal(fin, np.isfinite(kern_out["T"])) and fin.any(), cond["name"]
+        err = max(float(np.max(np.abs(kern_out[q] - lax_out[q])[fin] / np.abs(lax_out[q])[fin]))
+                  for q in ("T", "I_d", "I_B0"))
+        rec["parity"]["short"][cond["name"]] = {"steps": steps, "finite": int(fin.sum()), "max_rel": err,
+                                                "lax_s": lax_s, "kstep_launches": launches}
+        log(f"[20a parity short] {cond['name']}: {steps} steps ({PARITY_SHORT:g} s), B={B}: lax (CUDA graphs, "
+            f"{lax_s:.2f} s with the capture) against kstep ({launches} launches): finite {int(fin.sum())}/{B} in "
+            f"both, T/I_d/I_B0 max relative difference {err:.3e} (tolerance {QOI_RTOL:g})")
+        assert err < QOI_RTOL, (cond["name"], err)
+
+    # ---- (a)(ii)-(iii) run_config at the cut horizon, and the kernel against itself one ulp apart
+    inputs_for = parity_tpu.inputs_for
+
+    def shifted(cond, batch, seed):
+        x = inputs_for(cond, batch, seed)
+        return dict(x, V_a=x["V_a"] * (1 + PARITY_ULP))
+
+    line = lambda e: (f"finite {e['finite']['lax']}/{e['finite']['pallas']}, mask agreement "
+                      f"{e['finite']['mask_agreement']} (floor {parity_tpu.MIN_MASK_AGREEMENT}), attractor agreement "
+                      f"{e['finite']['attractor_agreement']} (floor {parity_tpu.MIN_ATTRACTOR_AGREEMENT}); " + "; ".join(
+                          f"{q} median/p90/max {r['median_rel']:.2e}/{r['p90_rel']:.2e}/{r['max_rel']:.2e} (tolerances "
+                          f"{r['tol_median']:g}/{r['tol_p90']:g}/{r['tol_max']:g})" for q, r in e["qois"].items())
+                      + f": pass={e['pass']}")
+    for cond in (c for c in parity_tpu.CONFIGS if c["name"] in PARITY_FIRST):
+        entry = parity_tpu.run_config(cond, B, 11, device=dev, duration=PARITY_DURATION)
+        rec["parity"]["configs"].append(entry)
+        count(cond, entry["kstep_launches"])
+        log(f"[20a parity] {cond['name']}: run_config at {PARITY_DURATION:g} s (uncut 2e-3 s) = {entry['steps']} "
+            f"steps, B={B}: lax (CUDA graphs) {entry['wall_s']['lax']:.2f} s = {entry['lax_ms_per_step']:.3f} "
+            f"ms/step, kstep {entry['wall_s']['pallas']:.2f} s in {entry['kstep_launches']} launches; " + line(entry))
+        assert entry["kstep_launches"] > 0 and entry["finite"]["both"] > 0, entry
+        a = parity_tpu.solve(cond, "kstep", B, 11, device=dev, duration=PARITY_DURATION)
+        parity_tpu.inputs_for = shifted
+        try:
+            b = parity_tpu.solve(cond, "kstep", B, 11, device=dev, duration=PARITY_DURATION)
+        finally:
+            parity_tpu.inputs_for = inputs_for
+        count(cond, a[3] + b[3])
+        twins = parity_tpu.score(cond, B, 11, a[0], b[0])
+        rec["parity"]["kstep_twins"].append(twins)
+        log(f"[20a parity] {cond['name']}: the same scoring of kstep against kstep with V_a {PARITY_ULP:g} apart: "
+            + line(twins))
+    log(f"[20a parity] horizon cut to {PARITY_DURATION:g} s of 2e-3 s, configs {list(PARITY_FIRST)} of "
+        f"{len(parity_tpu.CONFIGS)}: the script's verdicts are recorded, not gated (at a cut horizon the kernel "
+        f"misses them against itself too); gated: the ~1,100-step agreement above ({time.perf_counter() - t_phase:.2f} s)")
+
+    # ---- (b) gen_mlp_data through kstep, then mlp_sweep on r5's test set
+    t0 = time.perf_counter()
+    work = Path("build") / "sweep"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    shutil.copy(config_dir() / "pem_v0_SPT-100_compression.json", work)
+    (work / "test_set.pkl").symlink_to((Path("runs") / "r5" / "surr" / "test_set.pkl").resolve())
+    _kernels.reset_counts()
+    cache = gen_mlp_data.main(["-n", str(SWEEP_ROWS), "--seed", "1", "--chunk", str(SWEEP_ROWS),
+                               "--dir", str(work)])
+    sync()
+    gen_s, gen_launches = time.perf_counter() - t0, _kernels.launch_counts["kstep"]
+    with open(cache, "rb") as fd:
+        done_rows = pickle.load(fd)["done"]
+    rec["gen_mlp_data"] = {"rows": SWEEP_ROWS, "done": done_rows, "wall_s": gen_s, "rows_per_s": SWEEP_ROWS / gen_s,
+                           "kstep_launches": gen_launches}
+    rec["launches"]["gen_mlp_data"] = gen_launches
+    log(f"[20b gen_mlp_data] {SWEEP_ROWS} rows (r5: ~49k), the Thruster at its own 2e-3 s: {gen_s:.3f} s "
+        f"({SWEEP_ROWS / gen_s:.1f} rows/s), {gen_launches} kstep launches")
+    assert gen_launches > 0 and done_rows == SWEEP_ROWS
+    variants = mlp_sweep.VARIANTS
+    mlp_sweep.VARIANTS = [dict(v, steps=SWEEP_STEPS) for v in variants]
+    try:
+        t0 = time.perf_counter()
+        results, (best, surr) = mlp_sweep.main(["--dir", str(work), "--variants", *SWEEP_VARIANTS,
+                                                "-o", str(work / "mlp_sweep.json"), "--save-best"])
+        sync()
+        sweep_s = time.perf_counter() - t0
+    finally:
+        mlp_sweep.VARIANTS = variants
+    assert [r["name"] for r in results] == list(SWEEP_VARIANTS), results
+    for r in results:
+        cut = next(v for v in variants if v["name"] == r["name"])["steps"]
+        log(f"[20b mlp_sweep] {r['name']}: {r['hidden']} x {r['ensemble']}, {r['steps']} steps (uncut {cut}), "
+            f"{r['wall_s']} s, val_rmse {r['val_rmse']:.4f}, rel-L2 on r5's test set "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(r["rel_l2"].items())))
+        assert math.isfinite(r["val_rmse"]) and r["rel_l2"] and all(
+            math.isfinite(v) for v in r["rel_l2"].values()), r
+    xt, _ = mlp_sweep.load_test_set(work / "test_set.pkl")
+    reloaded = load_system(work / "pem_v0_SPT-100_trained.json", device=dev).system_surrogate
+    mine, again = surr.predict(xt), reloaded.predict(xt)
+    same = all(same_bits(mine[k], again[k]) for k in mine)
+    rec["mlp_sweep"] = {"variants": results, "best": best, "wall_s": sweep_s, "steps": SWEEP_STEPS,
+                        "reload_bit_equal": same}
+    log(f"[20b mlp_sweep] best {best}; the saved best reloads and predicts r5's {len(next(iter(xt.values())))} "
+        f"test rows {'bit for bit alike' if same else 'DIFFERENTLY'}; sweep {sweep_s:.2f} s")
+    assert same, "the saved best ensemble does not reload bit for bit"
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"[20] done ({rec['wall_s']:.2f} s)")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -1891,6 +2105,8 @@ def main() -> int:
     # ---- 19. the physics studies
     studies = study_phase(kstep_ms / K * 1e3)
     low_fidelity_kernels[0]["launches_diagnose_breathing"] = studies["launches"]["diagnose_breathing"]
+    # ---- 20. parity_tpu (kstep against the lax solver's graphs) and mlp_sweep
+    parity_sweep = parity_sweep_phase()
 
     kernels = [{
         "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1900,6 +2116,7 @@ def main() -> int:
         "launches_gen_data": workflow["gen_data"]["kstep_launches"],
         "launches_fit_surr": workflow["fit_surr"]["kstep_launches"],
         **{f"launches_{k}": v for k, v in studies["launches"].items() if not k.startswith("diagnose_breathing")},
+        **{f"launches_{k}": v for k, v in parity_sweep["launches"].items()},
         "max_abs_err": max_abs, "max_scaled_err": max_err,
         "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
@@ -1922,6 +2139,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"workflow": workflow}), flush=True)
     print(json.dumps({"studies": studies}), flush=True)
+    print(json.dumps({"parity_sweep": parity_sweep}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,8 +9,10 @@ NaN-row failure masks. One call solves a whole batch: any config value may be a
 ``device="cpu"``. :func:`dispatch_solver` picks the solver from the config: the
 K-step CUDA kernel on a CUDA device, its plain PyTorch version on the CPU
 (:mod:`.fused_step`), and past 254 cells or in float64 the lax solver
-(:mod:`.solver`) on either. :func:`simulate_batch_sharded` runs the same
-dispatch on every shard of a device mesh.
+(:mod:`.solver`, CUDA graphs on the card) on either; a caller names a route with
+``solver="kstep"`` or ``"lax"`` (JAX's ``HTPEM_SOLVER``).
+:func:`simulate_batch_sharded` runs the same dispatch on every shard of a device
+mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from hallthrusterpem_tpu_torch.constants import FUNDAMENTAL_CHARGE, atomic_mass_kg
 from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
-from hallthrusterpem_tpu_torch.models.thruster import solver
+from hallthrusterpem_tpu_torch.models.thruster import solver as lax
 from hallthrusterpem_tpu_torch.models.thruster.config import Geometry, SolverConfig, make_params
 from hallthrusterpem_tpu_torch.models.thruster.mapping import (
     PEM_TO_JULIA,
@@ -176,22 +178,34 @@ def uses_lax_solver(cfg: SolverConfig) -> bool:
     return cfg.nc > fs.LANES - 2 or cfg.dtype != "float32"
 
 
-def dispatch_solver(params: dict, base_B, cfg: SolverConfig, chunk_steps: int = 0) -> dict:
-    """Run the discharge solve where ``params`` lie. Float32 configs of at most 254
-    cells run the K-step time loop: the CUDA kernel on a CUDA device, its plain
-    version on the CPU. Finer grids and other dtypes run the lax solver
+#: the routes :func:`dispatch_solver` takes by name
+SOLVERS = ("kstep", "lax")
+
+
+def dispatch_solver(params: dict, base_B, cfg: SolverConfig, chunk_steps: int = 0, solver=None) -> dict:
+    """Run the discharge solve where ``params`` lie. By default float32 configs of
+    at most 254 cells run the K-step time loop: the CUDA kernel on a CUDA device,
+    its plain version on the CPU. Finer grids and other dtypes run the lax solver
     (:mod:`.solver`) on the same device, in segments of ``chunk_steps`` steps
     when the caller asks for them (0: one segment; a run with an I_d(t) trace is
-    never split, as in the JAX package). The kernel path ignores ``chunk_steps``."""
-    if not uses_lax_solver(cfg):
+    never split, as in the JAX package). The kernel path ignores ``chunk_steps``.
+
+    ``solver`` names the route instead (the JAX package's ``HTPEM_SOLVER``):
+    ``"lax"`` runs the lax solver on any config; ``"kstep"`` raises
+    ``NotImplementedError`` for a config the kernel's layout cannot take."""
+    if solver not in (None,) + SOLVERS:
+        raise ValueError(f"solver={solver!r}: expected None or one of {SOLVERS}")
+    if solver == "kstep":
+        fs.check_supported(cfg)
+    if solver == "kstep" or (solver is None and not uses_lax_solver(cfg)):
         return fs.simulate_batch_multi(params, base_B, cfg)
     if chunk_steps and cfg.num_steps > chunk_steps and cfg.num_save == 0:
-        return solver.simulate_batch_chunked(params, base_B, cfg, chunk_steps=chunk_steps)
-    return solver.simulate_batch(params, base_B, cfg)
+        return lax.simulate_batch_chunked(params, base_B, cfg, chunk_steps=chunk_steps)
+    return lax.simulate_batch(params, base_B, cfg)
 
 
 def simulate_batch_sharded(params: dict, base_B, cfg: SolverConfig, mesh, axis_name: str = "batch",
-                           chunk_steps: int = 0) -> dict:
+                           chunk_steps: int = 0, solver=None) -> dict:
     """Run the discharge solve over a device mesh, batch axis sharded (the
     counterpart of the JAX package's multi-chip path).
 
@@ -202,7 +216,8 @@ def simulate_batch_sharded(params: dict, base_B, cfg: SolverConfig, mesh, axis_n
     the unsharded run. JAX's ``backend`` and ``interpret`` arguments have no
     counterpart: the dispatcher picks the solver from ``cfg`` and the device.
     ``cfg`` is the whole batch's (its ``dt`` is the smallest over the batch), so
-    every shard steps alike; ``base_B`` is copied to each device.
+    every shard steps alike; ``base_B`` is copied to each device. ``solver``
+    names the route as in :func:`dispatch_solver`.
 
     :param params: per-sample parameter dict; every leaf ``(B, ...)`` with B a
         multiple of the mesh's ``axis_name`` size (else ``ValueError``)
@@ -210,11 +225,11 @@ def simulate_batch_sharded(params: dict, base_B, cfg: SolverConfig, mesh, axis_n
     """
     from hallthrusterpem_tpu_torch.parallel.mesh import sharded_call
 
-    solve = lambda p, b: dispatch_solver(p, b, cfg, chunk_steps=chunk_steps)
+    solve = lambda p, b: dispatch_solver(p, b, cfg, chunk_steps=chunk_steps, solver=solver)
     return sharded_call(solve, mesh, axis_name)(params, torch.as_tensor(base_B, dtype=torch.float32))
 
 
-def _solve_on_mesh(params: dict, base_B, cfg: SolverConfig, mesh) -> dict:
+def _solve_on_mesh(params: dict, base_B, cfg: SolverConfig, mesh, solver=None) -> dict:
     """:func:`simulate_batch_sharded` with one config for the whole batch: the
     rows are padded to a multiple of the mesh with copies of the last row, and
     the padding is dropped from the outputs."""
@@ -222,11 +237,11 @@ def _solve_on_mesh(params: dict, base_B, cfg: SolverConfig, mesh) -> dict:
     rem = (-n) % mesh.n_devices
     if rem:
         params = {k: torch.cat([v, v[-1:].expand(rem, *v.shape[1:])]) for k, v in params.items()}
-    raw = simulate_batch_sharded(params, base_B, cfg, mesh)
+    raw = simulate_batch_sharded(params, base_B, cfg, mesh, solver=solver)
     return {k: v[:n] if rem and v.ndim and v.shape[0] == n + rem else v for k, v in raw.items()}
 
 
-def run_simulation(json_input, device=None, mesh=None, **_compat) -> dict:
+def run_simulation(json_input, device=None, mesh=None, solver=None, **_compat) -> dict:
     """Run the discharge solver from a reference-format input tree (or the path of
     its JSON file) and return the reference-format output tree
     (``{'output': {'average': ...}, 'config': ..., ...}``) with tensors on
@@ -235,7 +250,7 @@ def run_simulation(json_input, device=None, mesh=None, **_compat) -> dict:
     whole-breathing-cycle mean where that is finite. With a ``mesh``
     (:class:`~hallthrusterpem_tpu_torch.parallel.mesh.Mesh`) the batch is
     sharded over its devices, every shard stepped with the one config the
-    whole tree gives."""
+    whole tree gives. ``solver`` names the route (:func:`dispatch_solver`)."""
     if not isinstance(json_input, dict):
         with open(json_input, "r", encoding="utf-8") as fd:
             json_input = json.load(fd)
@@ -244,7 +259,10 @@ def run_simulation(json_input, device=None, mesh=None, **_compat) -> dict:
     scalar_in = params["V_d"].ndim == 0
     if scalar_in:
         params = {k: v.reshape(1) for k, v in params.items()}
-    raw = dispatch_solver(params, base_B, cfg) if mesh is None else _solve_on_mesh(params, base_B, cfg, mesh)
+    if mesh is None:
+        raw = dispatch_solver(params, base_B, cfg, solver=solver)
+    else:
+        raw = _solve_on_mesh(params, base_B, cfg, mesh, solver=solver)
     if scalar_in:
         raw = {k: v[0] for k, v in raw.items()}
     z_axis = 0 if scalar_in else 1
@@ -324,6 +342,7 @@ def hallthruster_jl(
     shock_threshold: Optional[float] = None,
     device=None,
     mesh=None,
+    solver=None,
 ) -> Dataset:
     """PEM thruster component: batched 1-D Hall discharge simulation.
 
@@ -334,6 +353,8 @@ def hallthruster_jl(
     time step) are still built once from the whole batch and only the solve is
     sharded over the mesh's devices, so the outputs are those of the unsharded
     call, on the mesh's first device unless ``device`` names another.
+    ``solver`` (``None``, ``"kstep"``, ``"lax"``) names the solver's route
+    (:func:`dispatch_solver`).
     Non-physical samples come back as NaN rows: negative thrust, beam
     current, discharge current or mass efficiency; a beam current above
     1.5 Z e mdot / m_i; a time-averaged discharge current outside
@@ -358,7 +379,7 @@ def hallthruster_jl(
         tree["postprocess"]["output_file"] = str((Path(output_path) / fname).resolve())
 
     t1 = time.time()
-    sim_results = run_simulation(tree, device=device, mesh=mesh)
+    sim_results = run_simulation(tree, device=device, mesh=mesh, solver=solver)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t2 = time.time()

@@ -7,18 +7,23 @@ not hold: grids past 254 cells (model fidelity alpha_0 >= 4) and any
 ``dtype`` other than float32. It is written batched, with a leading batch axis
 (state ``(B, Z, NC)``), where JAX vmaps a one-sample step; every arithmetic
 expression keeps the operand order of the JAX model so that the rounding
-matches. The step loop reads no tensor value on the host, so on a CUDA device
-its launches queue without a sync; it runs on the device its inputs lie on.
+matches. The step reads no tensor value on the host: its step index is a
+tensor on the device, the averaging gate and the I_d(t) trace write are tensor
+expressions of it. So on a CUDA device :func:`_segment_batch` captures
+``GRAPH_STEPS`` steps once as a CUDA graph and replays it, the counterpart of
+JAX's jitted ``lax.scan``; on the CPU it dispatches the steps one by one. It
+runs on the device its inputs lie on.
 
 Carry: ``((rho_n (B,G,NC), rho_i (B,Z,NC), mom_i (B,Z,NC), nE (B,NC), I_prev (B,)),
 accum, i, failed)`` with ``accum`` a dict of running sums, ``i`` the step
-index (a Python int, the same for every sample) and ``failed`` a (B,) bool.
+index (a 0-d int64 tensor, the same for every sample) and ``failed`` a (B,) bool.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -422,7 +427,7 @@ def make_step(params: dict, base_B: torch.Tensor, cfg: SolverConfig):
 
         # accumulate inside [avg_start_step, num_steps) only: the upper gate makes
         # chunked runs exact when the last chunk overshoots num_steps
-        w = float(cfg.avg_start_step <= i < cfg.num_steps)
+        w = ((i >= cfg.avg_start_step) & (i < cfg.num_steps)).to(f)
         ui_prof = mom_i_new / torch.clamp(rho_i_new, min=rho_floor)
         inst = {"thrust": thrust, "I_d": I_d, "I_B0": I_B0, "mdot_ion": mdot_ion,
                 "u_exit1": u_exit[:, 0], "ui": ui_prof, "Te": Te, "ne": ne, "E": E_z, "nn": nn}
@@ -434,7 +439,8 @@ def make_step(params: dict, base_B: torch.Tensor, cfg: SolverConfig):
     accum0 = {"thrust": zeros(), "I_d": zeros(), "I_d2": zeros(), "I_B0": zeros(), "mdot_ion": zeros(),
               "u_exit1": zeros(), "ui": zeros(Z, NC), "Te": zeros(NC), "ne": zeros(NC), "E": zeros(NC),
               "nn": zeros(NC)}
-    carry0 = (state0, accum0, 0, torch.zeros((nB,), dtype=torch.bool, device=dev))
+    carry0 = (state0, accum0, torch.zeros((), dtype=torch.int64, device=dev),
+              torch.zeros((nB,), dtype=torch.bool, device=dev))
     return step, carry0
 
 
@@ -475,18 +481,135 @@ def _init_batch(params: dict, base_B, cfg: SolverConfig):
     return make_step(params, base_B, cfg)[1]
 
 
-def _segment_batch(params: dict, base_B, carry, cfg: SolverConfig, n_steps: int, trace=None):
-    """``n_steps`` steps from ``carry``. With ``trace`` (B, num_save), the
-    discharge current of every step ``i`` with ``i % stride == 0`` is written to
-    column ``i // stride`` (``stride = max(1, num_steps // num_save)``)."""
-    step, _ = make_step(params, base_B, cfg)
+#: steps of the CUDA graph the lax loop replays on a CUDA device
+GRAPH_STEPS = 100
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _traced(step, cfg: SolverConfig):
+    """``advance(carry, trace) -> carry'``: one step; with a ``trace`` of
+    ``cfg.num_save + 1`` columns also the step's discharge current written to
+    column ``i // stride`` when ``i % stride == 0`` and ``i // stride <
+    num_save``, and to the spare last column otherwise (JAX's ``step_save``;
+    ``stride = max(1, num_steps // num_save)``)."""
     stride = max(1, cfg.num_steps // max(cfg.num_save, 1))
-    for _ in range(n_steps):
+
+    def advance(carry, trace=None):
         i = carry[2]
         carry, I_d = step(carry)
-        if trace is not None and i % stride == 0 and i // stride < cfg.num_save:
-            trace[:, i // stride] = I_d
+        if trace is not None:
+            k = i // stride
+            col = torch.where((i % stride == 0) & (k < cfg.num_save), k, cfg.num_save)
+            trace.index_copy_(1, col.reshape(1), I_d[:, None])
+        return carry
+
+    return advance
+
+
+def _loop(advance, carry, n_steps: int, trace=None):
+    for _ in range(n_steps):
+        carry = advance(carry, trace)
     return carry
+
+
+def _leaves(carry) -> list:
+    state, accum, i, failed = carry
+    return list(state) + [accum[k] for k in ACCUM_KEYS] + [i, failed]
+
+
+def _clone(carry):
+    state, accum, i, failed = carry
+    return tuple(x.clone() for x in state), {k: v.clone() for k, v in accum.items()}, i.clone(), failed.clone()
+
+
+class _Replay:
+    """The lax step loop on a CUDA device as captured CUDA graphs.
+
+    ``carry`` is copied into static buffers; a graph of ``n`` steps runs the
+    steps from them and copies the result back into them, and ``trace`` (if any)
+    is written in place. :meth:`advance` replays a graph of ``min(GRAPH_STEPS,
+    n_steps)`` steps, then a graph of the remainder: exactly ``n_steps`` steps,
+    never more (one more step can flip a row's failure flag). Each graph is
+    captured once, on a stream of its own after one step there on throwaway
+    copies (lazy loading, the allocator), in the thread-local capture mode and
+    one capture at a time, so that several host threads may capture and replay
+    side by side, each on its current stream; a capture or replay error is
+    raised."""
+
+    def __init__(self, advance, carry, trace=None):
+        self._advance, self._trace = advance, trace
+        self.carry = _clone(carry)
+        self._graphs: dict = {}
+
+    def graph(self, n_steps: int):
+        """The graph of ``n_steps`` steps, captured on first use."""
+        if n_steps not in self._graphs:
+            dev = self.carry[3].device
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                _loop(self._advance, _clone(self.carry), 1, None if self._trace is None else self._trace.clone())
+                side.synchronize()
+                with _CAPTURE_LOCK:  # PyTorch registers its generators with one capture at a time
+                    g.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        out = _loop(self._advance, self.carry, n_steps, self._trace)
+                        for dst, src in zip(_leaves(self.carry), _leaves(out)):
+                            dst.copy_(src)
+                    finally:
+                        g.capture_end()
+            del out
+            self._graphs[n_steps] = g
+        return self._graphs[n_steps]
+
+    def advance(self, n_steps: int) -> None:
+        if n_steps <= 0:
+            return
+        size = min(GRAPH_STEPS, n_steps)
+        full, tail = divmod(n_steps, size)
+        for _ in range(full):
+            self.graph(size).replay()
+        if tail:
+            self.graph(tail).replay()
+
+
+class _Eager:
+    """The lax step loop one operator at a time, with :class:`_Replay`'s interface."""
+
+    def __init__(self, advance, carry, trace=None):
+        self._advance, self._trace, self.carry = advance, trace, carry
+
+    def advance(self, n_steps: int) -> None:
+        self.carry = _loop(self._advance, self.carry, n_steps, self._trace)
+
+
+def stepper(params: dict, base_B, carry, cfg: SolverConfig, trace=None):
+    """The lax loop from ``carry``: ``.advance(n_steps)``, then ``.carry``.
+    On a CUDA device it replays captured CUDA graphs (:class:`_Replay`; a
+    caller that advances by the same count again reuses the graph), on the CPU
+    it steps eagerly. ``trace`` as in :func:`_segment_batch`."""
+    advance = _traced(make_step(params, base_B, cfg)[0], cfg)
+    return (_Replay if carry[3].device.type == "cuda" else _Eager)(advance, carry, trace)
+
+
+def _segment_batch(params: dict, base_B, carry, cfg: SolverConfig, n_steps: int, trace=None):
+    """``n_steps`` steps from ``carry``: replayed CUDA graphs (:class:`_Replay`)
+    on a CUDA device, one step at a time on the CPU. With ``trace``
+    (B, num_save + 1), the discharge current of every step ``i`` with
+    ``i % stride == 0`` is written to column ``i // stride`` (``stride =
+    max(1, num_steps // num_save)``), the other steps' to the last column."""
+    run = stepper(params, base_B, carry, cfg, trace)
+    run.advance(n_steps)
+    return run.carry
+
+
+def _segment_batch_eager(params: dict, base_B, carry, cfg: SolverConfig, n_steps: int, trace=None):
+    """:func:`_segment_batch` one step at a time on any device: the operators
+    the graphs hold, in the same order, for comparing the two on the card."""
+    run = _Eager(_traced(make_step(params, base_B, cfg)[0], cfg), carry, trace)
+    run.advance(n_steps)
+    return run.carry
 
 
 def _finalize_batch(params: dict, carry, base_B, cfg: SolverConfig) -> dict:
@@ -508,13 +631,14 @@ def simulate_batch(params: dict, base_B: torch.Tensor, cfg: SolverConfig) -> dic
     carry = _init_batch(params, base_B, cfg)
     trace = None
     if cfg.num_save > 0:
-        trace = torch.zeros((params["V_d"].shape[0], cfg.num_save), dtype=_dtype(cfg),
+        trace = torch.zeros((params["V_d"].shape[0], cfg.num_save + 1), dtype=_dtype(cfg),
                             device=params["V_d"].device)
     carry = _segment_batch(params, base_B, carry, cfg, cfg.num_steps, trace)
     out = _finalize_batch(params, carry, base_B, cfg)
     if trace is not None:
         stride = max(1, cfg.num_steps // cfg.num_save)
         failed = carry[3]
+        trace = trace[:, :cfg.num_save]
         idx = torch.arange(cfg.num_save, device=trace.device) * stride
         out["discharge_current_trace"] = torch.where(failed[:, None], torch.nan, trace)
         out["trace_times"] = torch.broadcast_to((idx.to(torch.float32) + 1.0) * cfg.dt, trace.shape)
@@ -534,11 +658,11 @@ def simulate_batch_chunked(params: dict, base_B: torch.Tensor, cfg: SolverConfig
 def carry_from_jax_numpy(carry, device) -> tuple:
     """The JAX package's batched lax carry (``_init_batch`` / ``_segment_batch``),
     as numpy arrays, to the port's carry on ``device``. The step index must be
-    the same for every sample."""
+    the same for every sample; it becomes a 0-d int64 tensor."""
     (rho_n, rho_i, mom_i, nE, I_prev), accum, i, failed = carry
     t = lambda a: torch.as_tensor(np.array(a), device=device)
     steps = np.unique(np.asarray(i))
     if steps.size != 1:
         raise ValueError(f"the samples of a carry are at different steps: {steps}")
     return ((t(rho_n), t(rho_i), t(mom_i), t(nE), t(I_prev)), {k: t(accum[k]) for k in ACCUM_KEYS},
-            int(steps[0]), t(failed))
+            torch.tensor(int(steps[0]), dtype=torch.int64, device=device), t(failed))

@@ -11,7 +11,8 @@ statistics and the dominant breathing frequency of the beam current.
 Two routes, named in the output: when ``--every`` is a multiple of the K-step
 kernel's K = 50 and the kernel takes the config, the snapshots are read from
 the K-step state between launches (on the card, ``kstep``); otherwise the lax
-solver's ``make_step`` runs the steps, as the JAX package does.
+solver's ``make_step`` runs the steps (on the card as one replayed CUDA
+graph of ``--every`` steps), as the JAX package does.
 
 Usage:
   python -m hallthrusterpem_tpu_torch.scripts.diagnose_breathing [--cells 100] [--ncharge 1]
@@ -116,16 +117,16 @@ def run_kstep(params, base_B, cfg, every: int, n_snap: int) -> dict:
 
 
 def run_lax(params, base_B, cfg, every: int, n_snap: int) -> dict:
-    """``n_snap`` snapshots of the lax solver's carry every ``every`` steps."""
-    from hallthrusterpem_tpu_torch.models.thruster.solver import make_step
+    """``n_snap`` snapshots of the lax solver's carry every ``every`` steps
+    (on the card one CUDA graph of ``every`` steps, replayed)."""
+    from hallthrusterpem_tpu_torch.models.thruster import solver
 
-    step, carry = make_step(params, base_B, cfg)
+    run = solver.stepper(params, base_B, solver._init_batch(params, base_B, cfg), cfg)
     snaps = []
     for _ in range(n_snap):
-        for _ in range(every):
-            carry, _ = step(carry)
-        rho_n, rho_i, mom_i, nE, I_cir = carry[0]
-        snaps.append(snapshot(cfg, rho_n, rho_i, mom_i, nE, I_cir))
+        run.advance(every)
+        rho_n, rho_i, mom_i, nE, I_cir = run.carry[0]
+        snaps.append(snapshot(cfg, rho_n, rho_i, mom_i, nE, I_cir.clone()))
     return {k: torch.stack([sn[k] for sn in snaps]) for k in SNAP_KEYS}
 
 

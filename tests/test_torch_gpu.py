@@ -1,5 +1,6 @@
 """The K-step and one-step CUDA kernels on the card against their plain PyTorch
-versions; the lax solver on the card against the host CPU; the System path; the
+versions; the lax solver on the card against the host CPU, and its replayed
+CUDA graphs against its eager route bit for bit; the System path; the
 surrogates' products (the MLP ensemble's forward, the tensor interpolant) on the
 card against the host CPU.
 
@@ -153,6 +154,72 @@ def test_lax_solver_on_card_matches_cpu(dtype, fidelity):
     tol = {"float32": 1e-4, "float64": 1e-10}[dtype]
     for k in ("thrust", "discharge_current", "ion_current", "ui", "Tev", "ne", "E"):
         assert _scaled(got[k].cpu(), ref[k]) < tol, k
+
+
+def _lax_on_card(B, steps, dtype="float32", bad_row=False):
+    from hallthrusterpem_tpu_torch.models.thruster import solver
+
+    pem = CoupledPEM(model_fidelity=(2, 2), duration=2e-5, device="cuda")
+    cfg = dataclasses.replace(pem.cfg, dtype=dtype, duration=steps * pem.cfg.dt,
+                              average_start_time=steps * pem.cfg.dt / 2)
+    x = default_coupled_inputs(B, torch.Generator().manual_seed(5), spread=0.08, device="cuda")
+    params, _ = _coupled_pre(x, cfg)
+    if bad_row:
+        params = dict(params, V_d=params["V_d"].clone())
+        params["V_d"][1] = 3e9
+    return solver, cfg, params, pem.base_B
+
+
+def _same_bits(a, b) -> bool:
+    if a.is_floating_point():
+        return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lax_graph_equals_eager_on_card(dtype):
+    """``_segment_batch`` on the card replays CUDA graphs; its carry equals the
+    eager route's (the same operators in the same order) bit for bit."""
+    _need_card()
+    solver, cfg, params, base_B = _lax_on_card(8, 200, dtype)
+    carry = solver._init_batch(params, base_B, cfg)
+    graph = solver._segment_batch(params, base_B, carry, cfg, 200)
+    eager = solver._segment_batch_eager(params, base_B, carry, cfg, 200)
+    assert int(graph[2]) == int(eager[2]) == 200
+    assert all(_same_bits(g, e) for g, e in zip(solver._leaves(graph), solver._leaves(eager)))
+
+
+def test_lax_graph_tail_does_not_overshoot():
+    """``num_steps % GRAPH_STEPS != 0``: a graph of the remainder runs, the
+    step index ends at exactly ``num_steps`` and the carry equals the eager one."""
+    _need_card()
+    from hallthrusterpem_tpu_torch.models.thruster.solver import GRAPH_STEPS
+
+    n = 2 * GRAPH_STEPS + 37
+    solver, cfg, params, base_B = _lax_on_card(4, n)
+    carry = solver._init_batch(params, base_B, cfg)
+    replay = solver._Replay(solver._traced(solver.make_step(params, base_B, cfg)[0], cfg), carry)
+    replay.advance(n)
+    assert sorted(replay._graphs) == [37, solver.GRAPH_STEPS] and int(replay.carry[2]) == n
+    eager = solver._segment_batch_eager(params, base_B, carry, cfg, n)
+    assert all(_same_bits(g, e) for g, e in zip(solver._leaves(replay.carry), solver._leaves(eager)))
+
+
+def test_lax_graph_failed_row_stays_nan():
+    """A blow-up row (a 3e9 V discharge) is flagged and comes back NaN through
+    the graphs, with its trace, as through the eager route; the other rows stay
+    finite and the traces equal bit for bit."""
+    _need_card()
+    solver, cfg, params, base_B = _lax_on_card(4, 300, bad_row=True)
+    cfg = dataclasses.replace(cfg, num_save=32)
+    out = solver.simulate_batch(params, base_B, cfg)
+    trace = torch.zeros((4, 33), device="cuda")
+    eager = solver._segment_batch_eager(params, base_B, solver._init_batch(params, base_B, cfg), cfg,
+                                        cfg.num_steps, trace)
+    assert eager[3].tolist() == [False, True, False, False]
+    assert torch.isnan(out["thrust"]).tolist() == [False, True, False, False]
+    assert torch.isnan(out["discharge_current_trace"][1]).all()
+    assert _same_bits(out["discharge_current_trace"], torch.where(eager[3][:, None], torch.nan, trace[:, :32]))
 
 
 def test_system_predict_launches_kstep():

@@ -1,8 +1,8 @@
 """The port and chip_smoke.py import without JAX, optax, PyYAML, h5py, pandas,
 matplotlib or the JAX package: the machine with the card has none of them. Every
 module of the port is imported, the System layer's, the surrogates', the data
-loaders', UQ's, the scripts' (the workflow scripts and the physics studies among
-them), the plots' and the parallel layer's among them (scipy is allowed: the
+loaders', UQ's, the scripts' (the workflow scripts, the physics studies, the
+kernel-against-lax parity and the MLP sweep among them), the plots' and the parallel layer's among them (scipy is allowed: the
 card's machine has it)."""
 
 import subprocess
@@ -38,7 +38,7 @@ def test_port_imports_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = set(proc.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 74
+    assert len(names) >= 76
     pkg = "hallthrusterpem_tpu_torch."
     assert {pkg + m for m in ("ops.tridiag", "ops.svd", "models.fake_thruster", "core.dataset", "core.variables",
                               "core.component", "core.system", "core.json_loader", "surrogate",
@@ -53,5 +53,6 @@ def test_port_imports_without_jax():
                               "scripts.debug", "scripts.install_solver", "scripts._spt100", "scripts.anchors",
                               "scripts.probe_uion", "scripts.diagnose_current", "scripts.probe_anom_shape",
                               "scripts.probe_anode_zone", "scripts.tune_r5", "scripts.diagnose_breathing",
-                              "scripts.kernel_bench", "viz", "parallel", "parallel.mesh",
+                              "scripts.kernel_bench", "scripts.parity_tpu", "scripts.mlp_sweep", "viz",
+                              "parallel", "parallel.mesh",
                               "parallel.distributed")} <= names

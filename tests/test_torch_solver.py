@@ -190,6 +190,38 @@ def test_simulate_batch_matches_jax(ncharge, groups, plume, num_save):
             assert torch.equal(chunked[k], got[k]), k
 
 
+@pytest.mark.parametrize("nsteps,num_save", [
+    pytest.param(155, 200, id="more_saves_than_steps"),
+    pytest.param(500, 37, id="stride_13_with_a_tail"),
+])
+def test_step_index_and_trace_match_jax(nsteps, num_save):
+    """The step index is a 0-d int64 tensor of the carry (the averaging gate and
+    the trace write are tensor expressions of it), and the trace goes through a
+    buffer with one spare column: the outputs and the trace equal JAX's
+    ``simulate_batch``'s, with more save points than steps (the columns past the
+    last step stay zero, as in JAX's lax solver) and with off-stride steps after
+    the last save point."""
+    cj, ct, pj, base_B, pt, bt = _setup(3, nsteps, 3, num_save=num_save)
+    carry = tsol._init_batch(pt, bt, ct)
+    assert carry[2].dtype == torch.int64 and carry[2].ndim == 0 and int(carry[2]) == 0
+    trace = torch.full((3, num_save + 1), -1.0)
+    end = tsol._segment_batch(pt, bt, carry, ct, nsteps, trace)
+    assert int(end[2]) == nsteps and int(carry[2]) == 0
+    written = torch.arange(num_save) * max(1, nsteps // num_save) < nsteps
+    assert (trace[:, :num_save][:, ~written] == -1.0).all() and (trace[:, :num_save][:, written] != -1.0).all()
+    ref = {k: np.asarray(v) for k, v in jsol.simulate_batch(pj, jnp.asarray(base_B), cj).items()}
+    got = tsol.simulate_batch(pt, bt, ct)
+    assert np.all(np.isfinite(ref["thrust"]))
+    for key in ("thrust", "discharge_current", "ion_current"):
+        assert np.max(np.abs(got[key].numpy() - ref[key]) / np.abs(ref[key])) < 0.01, key
+    tr, rtr = got["discharge_current_trace"].numpy(), ref["discharge_current_trace"]
+    assert tr.shape == rtr.shape == (3, num_save)
+    np.testing.assert_array_equal(tr[:, ~written.numpy()], rtr[:, ~written.numpy()])
+    assert (rtr[:, ~written.numpy()] == 0).all()
+    np.testing.assert_allclose(tr, rtr, rtol=1e-4)
+    np.testing.assert_array_equal(got["trace_times"].numpy(), ref["trace_times"])
+
+
 def test_failed_rows_are_nan():
     """A blow-up row (a 3e9 V discharge) is flagged per row and comes back NaN,
     as in JAX; the other rows stay finite."""

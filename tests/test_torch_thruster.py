@@ -276,7 +276,7 @@ def test_failure_masks_match(avg_start, shock, poison, monkeypatch):
     raw = _raw_solver_output(B, 202, 3, poison)
     monkeypatch.setattr(jthr, "dispatch_solver", lambda p, b, c: {k: jnp.asarray(v) for k, v in raw.items()})
     monkeypatch.setattr(tthr, "dispatch_solver",
-                        lambda p, b, c: {k: torch.as_tensor(v) for k, v in raw.items()})
+                        lambda p, b, c, solver=None: {k: torch.as_tensor(v) for k, v in raw.items()})
     kw = dict(config=comp["config"], simulation=sim, postprocess=post, shock_threshold=shock)
     ref = jthr.hallthruster_jl(x, **kw)
     got = tthr.hallthruster_jl(_torch(x), device="cpu", **kw)
