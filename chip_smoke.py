@@ -32,7 +32,9 @@ Phases, each printed with its seconds:
    (5e-4 s, the bench length); one warm run and two timed runs, the
    launch count checked, the raw averages the failure guards judge; then the
    kernel's time per launch on this config, with the trace lanes and without;
-10. the one-step driver against the K-step driver: B = 1024, 914 steps;
+10. the one-step driver at B = 1024, 914 steps, through its CUDA graphs and
+    through its eager route (equal bit for bit, each launching the step kernel
+    914 times; timed, the captures apart), against the K-step driver;
 11. the one-step kernel's time per launch, its plain version's and its bound;
 12. the lax solver (fidelity (2,2), B = 8, 200 steps) on the card against the
     same code on the host CPU: in float64, the config's own precision, which
@@ -69,11 +71,14 @@ Phases, each printed with its seconds:
     ``UQ_MEDIAN_GAP_TOL``, and the carry of its launch ``UQ_PARITY_LAUNCH``
     (B = 1,472) through one kernel launch against the plain version; (c) the
     batched device posterior on phase 15's saved system (17 parameters, V_cc, T,
-    I_d, u_ion, j_ion) on the card against the CPU, each value within
-    ``UQ_POSTERIOR_TOL`` of its own, then ``mcmc.main`` with the stretch sampler (``UQ_STRETCH_WALKERS``
-    x ``UQ_STRETCH_ITERS``) and with DRAM (``UQ_DRAM_WALKERS`` x
-    ``UQ_DRAM_ITERS``), every log-posterior call on the whole batch, the
-    ``.npz`` chain read back equal; (d) ``sobol_sa`` over the 18 calibration and
+    I_d, u_ion, j_ion): its CUDA graphs (one per walker count) against its
+    eager route bit for bit at ``UQ_GRAPH_WALKERS`` walkers, on the card
+    against the CPU, each value within ``UQ_POSTERIOR_TOL`` of its own, both
+    routes timed; then ``mcmc.main`` with the stretch sampler
+    (``UQ_STRETCH_WALKERS`` x ``UQ_STRETCH_ITERS``) and with DRAM
+    (``UQ_DRAM_WALKERS`` x ``UQ_DRAM_ITERS``) through each route, every
+    log-posterior call on the whole batch, the ``.npz`` chain read back equal
+    and the two routes' chains equal; (d) ``sobol_sa`` over the 18 calibration and
     nuisance inputs, ``UQ_SOBOL_N`` x 20 rows in one batch on the card (timed as
     the least of ``UQ_SOBOL_TIMED_CALLS`` calls after a warm one), and the card
     against the CPU at ``UQ_SOBOL_CHECK_N``;
@@ -128,12 +133,18 @@ Phases, each printed with its seconds:
     ``gen_mlp_data`` labels ``SWEEP_ROWS`` rows through ``kstep`` into
     ``build/sweep/``, ``mlp_sweep`` fits ``SWEEP_VARIANTS`` (their steps cut to
     ``SWEEP_STEPS``) scored on r5's test set, and the saved best reloads bit for
-    bit.
+    bit;
+21. ``python -m hallthrusterpem_tpu_torch.bench`` (the port of ``bench.py``)
+    with its defaults as a child process: its JSON line with ``bench.py``'s
+    keys and a finite value, at least ``BENCH_FINITE`` of 1024 rows finite,
+    ``ceil(steps / 50)`` kstep launches in each timed run, and its value within
+    ``BENCH_GATE`` of ``1024 * 0.5 sim-ms / (launches x phase 6's ms a launch)``.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
 line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"studies": {...}}``
-line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), a ``{"kernels": [...]}``
+line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), a ``{"bench": {...}}``
+line (phase 21), a ``{"kernels": [...]}``
 line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -207,6 +218,7 @@ UQ_MEDIAN_GAP_TOL = 1e-2
 UQ_PARITY_LAUNCH = 10_000
 UQ_CHECK_THETAS = 64
 UQ_POSTERIOR_TOL = 1e-4
+UQ_GRAPH_WALKERS = (8, 32, 64)  # walker counts whose graphs are held to the eager route
 UQ_STRETCH_WALKERS = 64
 UQ_STRETCH_ITERS = 1000
 UQ_DRAM_WALKERS = 8
@@ -261,6 +273,11 @@ PARITY_ULP = 2.0**-22
 SWEEP_ROWS = 1024
 SWEEP_VARIANTS = ("base6k", "wide512")
 SWEEP_STEPS = 300
+# phase 21: the bench's child process, its finite rows and its value against
+# batch * 0.5 sim-ms / (launches x phase 6's ms a launch)
+BENCH_TIMEOUT = 300
+BENCH_FINITE = 1014
+BENCH_GATE = (0.90, 1.10)
 
 
 def log(msg: str) -> None:
@@ -938,79 +955,120 @@ def uq_phase(trained: Path) -> dict:
         assert pred_rec["median_max_rel_gap"][q] <= UQ_MEDIAN_GAP_TOL, (q, pred_rec["median_max_rel_gap"])
     del system, res, pred
 
-    # ---- (c) the device posterior on phase 15's trained system, card vs CPU; stretch and DRAM
+    # ---- (c) the device posterior on phase 15's trained system: its CUDA graphs against its eager
+    # route and against the CPU; stretch and DRAM through each route
     post_args = mcmc.parser.parse_args([str(trained), "--data", "spt100", "--qois", *UQ_QOIS])
-    lps, fns = [], {}
+    fns, first_call_s = {}, {}
     for where in ("cpu", "cuda"):
         sys_ = System.load_from_file(trained, device=where)
         calib = [v for v in sys_.inputs() if v.category == "calibration"]
-        d_ops, d_obs, d_sig, d_fields = mcmc.build_dataset(sys_, post_args)
-        fns[where] = mcmc.build_device_posterior(sys_, post_args, calib, [v.name for v in calib],
-                                                 d_ops, d_obs, d_sig, d_fields)
-        lps.append(fns[where][0](r5["draws"][:UQ_CHECK_THETAS]))
-    lp_cpu, lp_card = lps
+        d_args = (sys_, post_args, calib, [v.name for v in calib], *mcmc.build_dataset(sys_, post_args))
+        if where == "cpu":
+            fns["cpu"] = mcmc.build_device_posterior(*d_args)
+        else:
+            fns["eager"] = mcmc.build_device_posterior(*d_args, graphs=False)
+            fns["graphs"] = mcmc.build_device_posterior(*d_args)
+    lp_cpu = fns["cpu"][0](r5["draws"][:UQ_CHECK_THETAS])
+    graph_diff = {}
+    for W in UQ_GRAPH_WALKERS:
+        theta = r5["draws"][:W]
+        fns["eager"][0](theta)
+        sync()
+        t1 = time.perf_counter()
+        lp_graph = fns["graphs"][0](theta)  # the first call with W: warm-up call, capture, replay
+        first_call_s[W] = time.perf_counter() - t1
+        lp_eager = fns["eager"][0](theta)
+        other = np.roll(r5["draws"], 7, axis=0)[:W]
+        again = fns["graphs"][0](other)  # the same graph, other thetas
+        ref = fns["eager"][0](other)
+        graph_diff[W] = max(float(np.max(np.abs(lp_graph - lp_eager) / np.abs(lp_eager))),
+                            float(np.max(np.abs(again - ref) / np.abs(ref))))
+        if W == UQ_CHECK_THETAS:
+            lp_card = lp_graph
     assert np.all(np.abs(lp_cpu) < 1e29), lp_cpu  # every r5 draw lies in the domain
     post_err = float(np.max(np.abs(lp_card - lp_cpu) / np.abs(lp_cpu)))
-    wrapper = fns["cuda"][0]
-    wrapper(r5["draws"][:32])
-    sync()
-    t1 = time.perf_counter()
-    for _ in range(50):
+    call_ms = {}
+    for route in ("graphs", "eager"):
+        wrapper = fns[route][0]
         wrapper(r5["draws"][:32])
-    call_ms = (time.perf_counter() - t1) / 50 * 1e3
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(50):
+            wrapper(r5["draws"][:32])
+        call_ms[route] = (time.perf_counter() - t1) / 50 * 1e3
     theta32 = torch.as_tensor(r5["draws"][:32], dtype=torch.float32, device=dev)
-    n_ops = count_dispatches(lambda: fns["cuda"][1](theta32))
-    log(f"[16c posterior] {trained.name}, 17 parameters, QoIs {UQ_QOIS}: card vs CPU at {UQ_CHECK_THETAS} r5 "
-        f"draws, max |diff| / |lp| {post_err:.3e} (tolerance {UQ_POSTERIOR_TOL:g}), lp in "
-        f"[{lp_cpu.min():.4e}, {lp_cpu.max():.4e}]; {call_ms:.3f} ms a call at 32 walkers x 23 conditions, "
-        f"{n_ops} aten operators dispatched a call ({call_ms * 1e3 / n_ops:.2f} us each)")
+    n_ops = count_dispatches(lambda: fns["eager"][1].eager(theta32))
+    n_ops_graph = count_dispatches(lambda: fns["graphs"][1](theta32))
+    log(f"[16c posterior] {trained.name}, 17 parameters, QoIs {UQ_QOIS}: CUDA graphs vs the eager route at "
+        f"{list(UQ_GRAPH_WALKERS)} walkers, max |diff| / |lp| "
+        + ", ".join(f"{W}: {d:.3e}" for W, d in graph_diff.items())
+        + f" (tolerance 0: bit for bit); the first call with each walker count (warm-up call, capture, replay) "
+        + ", ".join(f"{W}: {t:.3f} s" for W, t in first_call_s.items())
+        + f"; card vs CPU at {UQ_CHECK_THETAS} r5 draws, max |diff| / |lp| {post_err:.3e} (tolerance "
+        f"{UQ_POSTERIOR_TOL:g}), lp in [{lp_cpu.min():.4e}, {lp_cpu.max():.4e}]; at 32 walkers x 23 conditions "
+        f"{call_ms['graphs']:.3f} ms a call graphed ({32e3 / call_ms['graphs']:.0f} walker evaluations/s, "
+        f"{n_ops_graph} aten operators dispatched), {call_ms['eager']:.3f} ms eager "
+        f"({32e3 / call_ms['eager']:.0f} walker evaluations/s, {n_ops} aten operators dispatched, "
+        f"{call_ms['eager'] * 1e3 / n_ops:.2f} us each)")
+    assert all(d == 0.0 for d in graph_diff.values()), graph_diff
     assert post_err <= UQ_POSTERIOR_TOL and np.all(np.isfinite(lp_card)), (post_err, lp_card)
     rec["posterior"] = {"card_vs_cpu_rel_err": post_err, "tolerance": UQ_POSTERIOR_TOL,
-                        "ms_per_call_32_walkers": call_ms, "aten_ops_per_call": n_ops}
+                        "graphs_vs_eager_rel_diff": graph_diff, "first_call_s": first_call_s,
+                        "ms_per_call_32_walkers": call_ms["graphs"], "ms_per_call_32_walkers_eager": call_ms["eager"],
+                        "aten_ops_per_call": n_ops, "aten_ops_per_call_graphed": n_ops_graph}
     del fns, wrapper
 
     real_build = mcmc.build_device_posterior
     for sampler, walkers, iters in (("stretch", UQ_STRETCH_WALKERS, UQ_STRETCH_ITERS),
                                     ("dram", UQ_DRAM_WALKERS, UQ_DRAM_ITERS)):
-        calls: list = []  # (batch rows, seconds) of every log-posterior call
+        chains = {}
+        for route in ("graphs", "eager"):
+            calls: list = []  # (batch rows, seconds) of every log-posterior call
 
-        def counted(*a, **k):
-            np_fn, torch_fn = real_build(*a, **k)
+            def counted(*a, **k):
+                np_fn, torch_fn = real_build(*a, graphs=route == "graphs", **k)
 
-            def timed(theta):
-                t = time.perf_counter()
-                out = np_fn(theta)
-                calls.append((np.shape(theta)[0], time.perf_counter() - t))
-                return out
+                def timed(theta):
+                    t = time.perf_counter()
+                    out = np_fn(theta)
+                    calls.append((np.shape(theta)[0], time.perf_counter() - t))
+                    return out
 
-            return timed, torch_fn
+                return timed, torch_fn
 
-        chain = build / f"{sampler}.npz"
-        chain.unlink(missing_ok=True)
-        mcmc.build_device_posterior = counted
-        try:
-            t1 = time.perf_counter()
-            samples, logps, acc = mcmc.main([str(trained), "--data", "spt100", "--qois", *UQ_QOIS,
-                                             "--sampler", sampler, "--walkers", str(walkers),
-                                             "--niter", str(iters), "--file", str(chain), "--device", "cuda"])
-            wall = time.perf_counter() - t1
-        finally:
-            mcmc.build_device_posterior = real_build
-        sizes = collections.Counter(n for n, _ in calls)
-        in_calls = sum(t for _, t in calls)
-        evals = sum(n for n, _ in calls)
-        back, back_lp = read_mcmc_chain(chain, burn_frac=0.0, clean=False)
-        expect = {walkers // 2} if sampler == "stretch" else {walkers}
-        log(f"[16c {sampler}] {walkers} walkers x {iters} iterations through mcmc.main on the card: "
-            f"{wall:.3f} s in all, {len(calls)} log-posterior calls, batch sizes {dict(sizes)}, "
-            f"{in_calls / len(calls) * 1e3:.3f} ms a call, {evals / in_calls:.0f} walker evaluations/s, "
-            f"acceptance {acc:.3f}; chain {back.shape} read back from {chain.name}")
-        assert calls and set(sizes) - {walkers} <= expect, sizes  # never the per-walker loop
-        assert np.isfinite(samples).all() and np.isfinite(logps).all() and 0.0 < acc < 1.0, acc
-        assert np.array_equal(back, samples) and np.array_equal(back_lp, logps)
-        rec[sampler] = {"walkers": walkers, "iterations": iters, "wall_s": wall, "calls": len(calls),
-                        "ms_per_call": in_calls / len(calls) * 1e3, "walker_evals_per_s": evals / in_calls,
-                        "acceptance": acc}
+            chain = build / f"{sampler}_{route}.npz"
+            chain.unlink(missing_ok=True)
+            mcmc.build_device_posterior = counted
+            try:
+                t1 = time.perf_counter()
+                samples, logps, acc = mcmc.main([str(trained), "--data", "spt100", "--qois", *UQ_QOIS,
+                                                 "--sampler", sampler, "--walkers", str(walkers),
+                                                 "--niter", str(iters), "--file", str(chain), "--device", "cuda"])
+                wall = time.perf_counter() - t1
+            finally:
+                mcmc.build_device_posterior = real_build
+            sizes = collections.Counter(n for n, _ in calls)
+            in_calls = sum(t for _, t in calls)
+            evals = sum(n for n, _ in calls)
+            back, back_lp = read_mcmc_chain(chain, burn_frac=0.0, clean=False)
+            expect = {walkers // 2} if sampler == "stretch" else {walkers}
+            log(f"[16c {sampler} {route}] {walkers} walkers x {iters} iterations through mcmc.main on the card: "
+                f"{wall:.3f} s in all, {len(calls)} log-posterior calls, batch sizes {dict(sizes)}, "
+                f"{in_calls / len(calls) * 1e3:.3f} ms a call, {evals / in_calls:.0f} walker evaluations/s, "
+                f"acceptance {acc:.3f}; chain {back.shape} read back from {chain.name}")
+            assert calls and set(sizes) - {walkers} <= expect, sizes  # never the per-walker loop
+            assert np.isfinite(samples).all() and np.isfinite(logps).all() and 0.0 < acc < 1.0, acc
+            assert np.array_equal(back, samples) and np.array_equal(back_lp, logps)
+            chains[route] = (samples, logps)
+            rec[sampler if route == "graphs" else f"{sampler}_eager"] = {
+                "walkers": walkers, "iterations": iters, "wall_s": wall, "calls": len(calls),
+                "ms_per_call": in_calls / len(calls) * 1e3, "walker_evals_per_s": evals / in_calls,
+                "acceptance": acc}
+        same = all(np.array_equal(g, e) for g, e in zip(chains["graphs"], chains["eager"]))
+        rec[sampler]["chain_equal_to_eager"] = same
+        log(f"[16c {sampler}] the chain and its log-posteriors through the CUDA graphs "
+            f"{'equal' if same else 'DIFFER FROM'} the eager route's")
+        assert same, f"{sampler}: the graphed posterior's chain differs from the eager one's"
 
     # ---- (d) Sobol' over the 18 calibration and nuisance inputs at one pressure
     card_sys = System.load_from_file(trained, device=dev)
@@ -1755,6 +1813,50 @@ def parity_sweep_phase() -> dict:
     return rec
 
 
+def bench_phase(kstep_ms: float) -> dict:
+    """Phase 21: ``python -m hallthrusterpem_tpu_torch.bench`` with its defaults
+    as a child process; ``kstep_ms`` is phase 6's ms a launch. Returns the
+    ``{"bench": ...}`` record."""
+    import os
+
+    import torch
+
+    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from hallthrusterpem_tpu_torch.pem import CoupledPEM
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # leave the card's memory to the child
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "hallthrusterpem_tpu_torch.bench"], capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT, env=env, cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-5:]:
+        log(f"[21 bench] stderr: {line}")
+    assert proc.returncode == 0, f"the bench exited with {proc.returncode}: {proc.stdout[-2000:]}"
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    finite = re.search(r"(\d+)/(\d+) finite", proc.stderr)
+    runs = re.search(r"(\d+) steps, kstep launches per timed run \[(\d+), (\d+)\]", proc.stderr)
+    assert finite and runs, proc.stderr[-2000:]
+    n_ok, batch = int(finite.group(1)), int(finite.group(2))
+    steps, launches = int(runs.group(1)), [int(runs.group(2)), int(runs.group(3))]
+    duration = 5e-4  # the bench's default
+    assert steps == CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=duration, device="cuda").cfg.num_steps
+    expect = math.ceil(steps / fs.INNER_STEPS)
+    predicted = batch * duration * 1e3 / (expect * kstep_ms / 1e3)
+    ratio = line["value"] / predicted if line["value"] is not None else float("nan")
+    log(f"[21 bench] {json.dumps(line)}; {n_ok}/{batch} rows finite, {steps} steps, kstep launches per timed "
+        f"run {launches} (ceil(steps / {fs.INNER_STEPS}) = {expect}); phase 6's {kstep_ms:.4f} ms a launch "
+        f"predicts {predicted:.3f} sim-ms/s: measured / predicted {ratio:.4f} (gate {BENCH_GATE}); the child "
+        f"process took {wall:.2f} s")
+    assert list(line) == ["metric", "value", "unit", "vs_baseline"], line
+    assert line["metric"] == "coupled_pem_sim_ms_per_sec_per_chip" and math.isfinite(line["value"]), line
+    assert batch == 1024 and n_ok >= BENCH_FINITE, (n_ok, batch)
+    assert launches == [expect, expect], (launches, expect)
+    assert BENCH_GATE[0] <= ratio <= BENCH_GATE[1], ratio
+    return {"line": line, "finite_rows": n_ok, "batch": batch, "steps": steps, "kstep_launches": launches,
+            "predicted_sim_ms_per_s": predicted, "measured_over_predicted": ratio, "child_wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -1768,6 +1870,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script checks the port on a GPU")
 
     import hallthrusterpem_tpu_torch.models.thruster as thruster
+    from hallthrusterpem_tpu_torch import cuda_graph
     from hallthrusterpem_tpu_torch.constants import FUNDAMENTAL_CHARGE
     from hallthrusterpem_tpu_torch.core.json_loader import load_system
     from hallthrusterpem_tpu_torch.models.cathode import cathode_coupling
@@ -2048,27 +2151,67 @@ def main() -> int:
         f"without (main path config: {kstep_ms:.3f})")
     del carry, wparams
 
-    # ---- 10. the one-step driver vs the K-step driver: B = 1024, 914 steps
+    # ---- 10. the one-step driver, its CUDA graphs and its eager route, vs the K-step driver: B = 1024, 914 steps
     t0 = time.perf_counter()
     small = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-6, device=dev)
     params, _ = _coupled_pre(default_coupled_inputs(batch, torch.Generator().manual_seed(10),
                                                     spread=0.08, device=dev), small.cfg)
-    _kernels.reset_counts()
-    got = simulate_batch_step(params, small.base_B, small.cfg)
-    torch.cuda.synchronize()
-    step_launches = dict(_kernels.launch_counts)
+    n_small = small.cfg.num_steps
+    real_capture, captures = cuda_graph.capture, []
+
+    def timed_capture(*a, **k):
+        t = time.perf_counter()
+        g = real_capture(*a, **k)
+        captures.append(time.perf_counter() - t)
+        return g
+
+    one_step = {}
+    cuda_graph.capture = timed_capture
+    try:
+        # graphed then eager, twice: the second of each is timed (the first warms it)
+        for label, graphs in (("graphed", True), ("eager", False)) * 2:
+            captures.clear()
+            torch.cuda.synchronize()
+            _kernels.reset_counts()
+            t1 = time.perf_counter()
+            got = simulate_batch_step(params, small.base_B, small.cfg, graphs=graphs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            one_step[label] = {"out": got, "wall_s": wall, "launches": dict(_kernels.launch_counts),
+                               "captures": len(captures), "capture_s": sum(captures)}
+    finally:
+        cuda_graph.capture = real_capture
     ref = fs.simulate_batch_multi(params, small.base_B, small.cfg)
     torch.cuda.synchronize()
-    assert step_launches["step"] == small.cfg.num_steps and step_launches["kstep"] == 0, step_launches
+    graphed, eager = one_step["graphed"], one_step["eager"]
+    step_launches = graphed["launches"]
+    for run_ in (graphed, eager):
+        assert run_["launches"]["step"] == n_small and run_["launches"]["kstep"] == 0, run_["launches"]
+    differ = [k for k in eager["out"] if not same_bits(graphed["out"][k], eager["out"][k])]
+    got = graphed["out"]
     assert torch.equal(torch.isfinite(got["thrust"]), torch.isfinite(ref["thrust"]))
     ok = torch.isfinite(ref["thrust"])
     qoi_err = max(float(((got[k] - ref[k]).abs() / ref[k].abs())[ok].max())
                   for k in ("thrust", "discharge_current", "ion_current"))
-    log(f"[10 one-step driver] B={batch}, {small.cfg.num_steps} steps, {step_launches['step']} step "
-        f"launches: T/I_d/I_B0 vs the K-step driver max relative error {qoi_err:.3e} (tolerance "
+    for run_ in (graphed, eager):
+        run_["us_per_step"] = run_["wall_s"] / n_small * 1e6
+    graphed["replay_us_per_step"] = (graphed["wall_s"] - graphed["capture_s"]) / n_small * 1e6
+    # the card's busy time a step, from a torch.profiler trace of one graphed run
+    busy_ms, traced_ms, n_events = device_busy(lambda: simulate_batch_step(params, small.base_B, small.cfg))
+    graphed.update(card_busy_us_per_step=busy_ms / n_small * 1e3, card_events_per_step=n_events / n_small)
+    log(f"[10 one-step driver] B={batch}, {n_small} steps, {step_launches['step']} step launches graphed and "
+        f"{eager['launches']['step']} eager: graphed {graphed['wall_s'] * 1e3:.2f} ms a run "
+        f"({graphed['us_per_step']:.2f} us a step; {graphed['captures']} captures {graphed['capture_s'] * 1e3:.2f} ms, "
+        f"without them {graphed['replay_us_per_step']:.2f} us a step; the card busy "
+        f"{graphed['card_busy_us_per_step']:.2f} us a step over {graphed['card_events_per_step']:.1f} events a step "
+        f"in a traced run), eager {eager['wall_s'] * 1e3:.2f} ms a run "
+        f"({eager['us_per_step']:.2f} us a step); outputs that differ from the eager route in any bit: "
+        f"{differ or 'none'}; T/I_d/I_B0 vs the K-step driver max relative error {qoi_err:.3e} (tolerance "
         f"{QOI_RTOL:g}), finite {int(ok.sum())}/{batch} ({time.perf_counter() - t0:.2f} s)")
+    assert not differ, differ
     assert qoi_err < QOI_RTOL and int(ok.sum()) > 0
-    del got, ref
+    one_step_rec = {k: {f: v for f, v in r.items() if f != "out"} for k, r in one_step.items()}
+    del got, ref, one_step, graphed, eager
 
     # ---- 11. the one-step kernel's time, its plain version's and its bound, B = 1024
     t0 = time.perf_counter()
@@ -2107,6 +2250,8 @@ def main() -> int:
     low_fidelity_kernels[0]["launches_diagnose_breathing"] = studies["launches"]["diagnose_breathing"]
     # ---- 20. parity_tpu (kstep against the lax solver's graphs) and mlp_sweep
     parity_sweep = parity_sweep_phase()
+    # ---- 21. the port's bench.py as its user runs it
+    bench = bench_phase(kstep_ms)
 
     kernels = [{
         "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
@@ -2117,6 +2262,7 @@ def main() -> int:
         "launches_fit_surr": workflow["fit_surr"]["kstep_launches"],
         **{f"launches_{k}": v for k, v in studies["launches"].items() if not k.startswith("diagnose_breathing")},
         **{f"launches_{k}": v for k, v in parity_sweep["launches"].items()},
+        "launches_bench": bench["kstep_launches"][0],
         "max_abs_err": max_abs, "max_scaled_err": max_err,
         "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
@@ -2125,7 +2271,13 @@ def main() -> int:
         "sass_instructions_per_step": step_insns, "sm_clock_mhz": sm_mhz, "issue_us_per_step": issue_us,
     }, *low_fidelity_kernels, {
         "name": "step", "route": "cuda", "source": STEP_SOURCE, "replaces": STEP_REPLACES,
-        "launches": step_launches["step"], "max_abs_err": step_abs, "max_scaled_err": step_err,
+        "launches": step_launches["step"], "launches_graphed": step_launches["step"],
+        "launches_eager": one_step_rec["eager"]["launches"]["step"],
+        "us_per_step_graphed": one_step_rec["graphed"]["us_per_step"],
+        "us_per_step_graphed_replays": one_step_rec["graphed"]["replay_us_per_step"],
+        "card_busy_us_per_step_graphed": one_step_rec["graphed"]["card_busy_us_per_step"],
+        "us_per_step_eager": one_step_rec["eager"]["us_per_step"],
+        "max_abs_err": step_abs, "max_scaled_err": step_err,
         "scaled_err_tolerance": STATE_RTOL, "ms": step_ms, "host_paced_ms": step_paced_ms,
         "plain_ms": step_plain_ms,
         "bound_ms": max(s_ops_ms, s_bytes_ms),
@@ -2140,6 +2292,7 @@ def main() -> int:
     print(json.dumps({"workflow": workflow}), flush=True)
     print(json.dumps({"studies": studies}), flush=True)
     print(json.dumps({"parity_sweep": parity_sweep}), flush=True)
+    print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -56,11 +56,12 @@ def _xp(x):
 
 def _density_on(x, lo, hi, value):
     """``value`` on ``[lo, hi]`` and 0 elsewhere, in the dtype of a floating
-    tensor ``x`` (``torch.where`` of two Python floats would give float32)."""
+    tensor ``x`` (``torch.where`` of two Python floats would give float32). No
+    host-to-device copy: a CUDA graph can capture it."""
     inside = (x >= lo) & (x <= hi)
     if isinstance(x, torch.Tensor):
         dtype = x.dtype if x.is_floating_point() else torch.get_default_dtype()
-        return torch.where(inside, torch.as_tensor(value, dtype=dtype, device=x.device), 0.0)
+        return torch.where(inside, torch.full_like(x, value, dtype=dtype), 0.0)
     return np.where(inside, value, 0.0)
 
 

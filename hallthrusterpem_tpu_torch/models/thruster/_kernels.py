@@ -32,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from hallthrusterpem_tpu_torch import cuda_graph
 from hallthrusterpem_tpu_torch.constants import ELECTRON_MASS, FUNDAMENTAL_CHARGE
 from hallthrusterpem_tpu_torch.models.thruster.config import SolverConfig
 from hallthrusterpem_tpu_torch.models.thruster.fused_step import (
@@ -54,7 +55,8 @@ HEADER = CSRC / "physics.cuh"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
-#: launches of each kernel since the last reset (counted where the kernel is launched)
+#: launches of each kernel since the last reset (counted where the kernel is
+#: launched, and for a launch captured in a CUDA graph at each replay)
 launch_counts = {"kstep": 0, "step": 0}
 #: per kernel, what its build did: seconds, whether it was cached, nvcc's -Xptxas -v lines
 build_info: dict = {}
@@ -74,8 +76,8 @@ def reset_counts() -> None:
 
 
 def _count(name: str) -> None:
-    with _state_lock:
-        launch_counts[name] += 1
+    # under a CUDA graph's capture the launch is counted at each replay instead
+    cuda_graph.count(launch_counts, name, _state_lock)
 
 
 class KParams(ctypes.Structure):

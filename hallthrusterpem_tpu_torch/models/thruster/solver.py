@@ -23,11 +23,11 @@ from __future__ import annotations
 
 import functools
 import math
-import threading
 
 import numpy as np
 import torch
 
+from hallthrusterpem_tpu_torch import cuda_graph
 from hallthrusterpem_tpu_torch.constants import BOLTZMANN_CONSTANT, ELECTRON_MASS, FUNDAMENTAL_CHARGE
 from hallthrusterpem_tpu_torch.models.thruster.config import (
     SolverConfig,
@@ -483,7 +483,6 @@ def _init_batch(params: dict, base_B, cfg: SolverConfig):
 
 #: steps of the CUDA graph the lax loop replays on a CUDA device
 GRAPH_STEPS = 100
-_CAPTURE_LOCK = threading.Lock()
 
 
 def _traced(step, cfg: SolverConfig):
@@ -530,11 +529,8 @@ class _Replay:
     is written in place. :meth:`advance` replays a graph of ``min(GRAPH_STEPS,
     n_steps)`` steps, then a graph of the remainder: exactly ``n_steps`` steps,
     never more (one more step can flip a row's failure flag). Each graph is
-    captured once, on a stream of its own after one step there on throwaway
-    copies (lazy loading, the allocator), in the thread-local capture mode and
-    one capture at a time, so that several host threads may capture and replay
-    side by side, each on its current stream; a capture or replay error is
-    raised."""
+    captured once by :func:`..cuda_graph.capture`, after one step on throwaway
+    copies; a capture or replay error is raised."""
 
     def __init__(self, advance, carry, trace=None):
         self._advance, self._trace = advance, trace
@@ -544,23 +540,15 @@ class _Replay:
     def graph(self, n_steps: int):
         """The graph of ``n_steps`` steps, captured on first use."""
         if n_steps not in self._graphs:
-            dev = self.carry[3].device
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(side):
+            def warmup():
                 _loop(self._advance, _clone(self.carry), 1, None if self._trace is None else self._trace.clone())
-                side.synchronize()
-                with _CAPTURE_LOCK:  # PyTorch registers its generators with one capture at a time
-                    g.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        out = _loop(self._advance, self.carry, n_steps, self._trace)
-                        for dst, src in zip(_leaves(self.carry), _leaves(out)):
-                            dst.copy_(src)
-                    finally:
-                        g.capture_end()
-            del out
-            self._graphs[n_steps] = g
+
+            def body():
+                out = _loop(self._advance, self.carry, n_steps, self._trace)
+                for dst, src in zip(_leaves(self.carry), _leaves(out)):
+                    dst.copy_(src)
+
+            self._graphs[n_steps] = cuda_graph.capture(body, self.carry[3].device, warmup)
         return self._graphs[n_steps]
 
     def advance(self, n_steps: int) -> None:

@@ -31,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from hallthrusterpem_tpu_torch import cuda_graph
 from hallthrusterpem_tpu_torch.core.dataset import to_numpy
 from hallthrusterpem_tpu_torch.core.json_loader import find_latest_save
 from hallthrusterpem_tpu_torch.core.system import System
@@ -184,7 +185,7 @@ def build_numpy_posterior(system, args, calib, names, ops, obs, sig, fields):
     return log_posterior
 
 
-def build_device_posterior(system, args, calib, names, ops, obs, sig, fields):
+def build_device_posterior(system, args, calib, names, ops, obs, sig, fields, graphs: bool = True):
     """The log-posterior as ONE PyTorch function ``theta (W, d) -> (W,)`` over
     float32 tensors on the system's device: the surrogate chain
     (``System.as_torch_fn(training=True)``) once over all W * M * n_ops rows,
@@ -200,8 +201,16 @@ def build_device_posterior(system, args, calib, names, ops, obs, sig, fields):
     posterior is deterministic; these draws are not the JAX package's
     (``jax.random`` streams are not reproducible in torch).
 
+    On a CUDA device the function replays one CUDA graph per walker count W
+    (the counterpart of JAX's ``jax.jit`` of it): ``theta`` is copied into a
+    static (W, d) buffer, the graph captured on the first call with that W
+    (after one warm-up call) is replayed, and its (W,) output read; a capture or
+    replay error is raised. ``graphs=False`` runs it one operator at a time
+    there, for comparing the two; on the CPU it always does.
+
     Returns ``(np_wrapper, log_posterior)``: the wrapper takes and returns numpy
-    for the host samplers, with one host sync per call.
+    for the host samplers, with one host sync per call; ``log_posterior.eager``
+    is the function without the static buffers and graphs.
     """
     dev = system.device
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
@@ -286,10 +295,35 @@ def build_device_posterior(system, args, calib, names, ops, obs, sig, fields):
             out = torch.where(inside, lp + lsum, -torch.inf)
             return torch.where(torch.isfinite(out), out, -1e30)
 
-    def np_wrapper(theta: np.ndarray) -> np.ndarray:
-        return to_numpy(log_posterior(f32(np.atleast_2d(theta)))).astype(float)
+    programs: dict = {}  # W -> (the static theta buffer, its graph or None)
 
-    return np_wrapper, log_posterior
+    def run(theta: torch.Tensor) -> torch.Tensor:
+        """The (W,) values in the static output of W's graph (rewritten by the
+        next call with W), or a new tensor where there is no graph."""
+        W = theta.shape[0]
+        if W not in programs:
+            buf = torch.empty((W, len(names)), dtype=torch.float32, device=dev)
+            buf.copy_(theta)
+            graph = None
+            if graphs and dev.type == "cuda":
+                with full_fp32():  # the graph keeps the precision it was captured with
+                    graph = cuda_graph.capture(lambda: log_posterior(buf), dev, lambda: log_posterior(buf))
+            programs[W] = (buf, graph)
+        buf, graph = programs[W]
+        buf.copy_(theta)
+        if graph is None:
+            return log_posterior(buf)
+        graph.replay()
+        return graph.output
+
+    def np_wrapper(theta: np.ndarray) -> np.ndarray:
+        return to_numpy(run(f32(np.atleast_2d(theta)))).astype(float)
+
+    def device_fn(theta: torch.Tensor) -> torch.Tensor:
+        return run(theta).clone()
+
+    device_fn.eager = log_posterior  # the function itself, one operator at a time on any theta
+    return np_wrapper, device_fn
 
 
 def _reflect_into(x: np.ndarray, dom: np.ndarray) -> np.ndarray:

@@ -291,24 +291,20 @@ def test_eval_tensor_on_card_matches_cpu(method):
         assert got.dtype == dtype and _scaled(got.cpu(), ref) < tol, dtype
 
 
-def test_device_posterior_on_card_matches_cpu():
-    """The pem_v0 device posterior (``scripts/pem_v0/mcmc.build_device_posterior``)
-    on the card against the same function on the CPU: a small MLP surrogate
-    (2 x 32, 2 members, 40 steps) trained on the CPU on smooth synthetic labels
-    of ``pem_v0_SPT-100_compression.json``'s outputs (u_ion and j_ion through
-    their compression maps), the spt100 data with every QoI, M = 4 noise
-    samples, 32 thetas over the priors: each value within 1e-4 of its own; the result
-    stays on the card until the numpy wrapper reads it."""
+def _posterior_systems():
+    """``pem_v0_SPT-100_compression.json`` on the CPU and on the card with one
+    small MLP surrogate (2 x 32, 2 members, 40 steps) trained on the CPU on
+    smooth synthetic labels of its outputs (u_ion and j_ion through their
+    compression maps), and the posterior's arguments: the spt100 data with
+    every QoI, M = 4 noise samples."""
     import argparse
 
     import numpy as np
 
     from hallthrusterpem_tpu_torch.core.dataset import as_numpy
     from hallthrusterpem_tpu_torch.core.json_loader import load_system
-    from hallthrusterpem_tpu_torch.scripts.pem_v0 import mcmc
     from hallthrusterpem_tpu_torch.surrogate.mlp import MLPSurrogate
 
-    _need_card()
     cpu = load_system("pem_v0_SPT-100_compression.json", device="cpu")
     x = as_numpy(cpu.sample_inputs(256, seed=0, use_pdf=["calibration", "nuisance"]))
     z = np.stack([cpu._variables[k].normalize(x[k]) for k in sorted(x)], -1)
@@ -326,24 +322,143 @@ def test_device_posterior_on_card_matches_cpu():
     cpu.system_surrogate = surr
     card = load_system("pem_v0_SPT-100_compression.json", device="cuda")
     card.system_surrogate = MLPSurrogate.from_state(surr.to_state(), card)
-
     args = argparse.Namespace(data=["spt100"], qois=["V_cc", "T", "I_d", "u_ion", "j_ion"], noise_samples=4,
                               field_weight=1.0, id_penalty=2.0, use_model=None)
+    return cpu, card, args
+
+
+def _posterior(system, args, **kw):
+    import numpy as np
+
+    from hallthrusterpem_tpu_torch.scripts.pem_v0 import mcmc
+
+    calib = [v for v in system.inputs() if v.category == "calibration"]
+    ops, obs, sig, fields = mcmc.build_dataset(system, args)
+    wrapper, fn = mcmc.build_device_posterior(system, args, calib, [v.name for v in calib], ops, obs, sig, fields,
+                                              **kw)
+    dom = np.array([v.get_domain() for v in calib])
+    thetas = lambda W, seed: dom[:, 0] + np.random.default_rng(seed).uniform(0.1, 0.9, (W, len(calib))) * (
+        dom[:, 1] - dom[:, 0])
+    return wrapper, fn, thetas
+
+
+def test_device_posterior_on_card_matches_cpu():
+    """The pem_v0 device posterior (``scripts/pem_v0/mcmc.build_device_posterior``)
+    on the card against the same function on the CPU (:func:`_posterior_systems`),
+    32 thetas over the priors: each value within 1e-4 of its own; the result
+    stays on the card until the numpy wrapper reads it."""
+    import numpy as np
+
+    _need_card()
+    cpu, card, args = _posterior_systems()
     lps = []
     for system in (cpu, card):
-        calib = [v for v in system.inputs() if v.category == "calibration"]
-        ops, obs, sig, fields = mcmc.build_dataset(system, args)
-        wrapper, fn = mcmc.build_device_posterior(system, args, calib, [v.name for v in calib], ops, obs, sig,
-                                                  fields)
-        dom = np.array([v.get_domain() for v in calib])
-        u = np.random.default_rng(1).uniform(0.1, 0.9, (32, len(calib)))
-        theta = dom[:, 0] + u * (dom[:, 1] - dom[:, 0])
+        wrapper, fn, thetas = _posterior(system, args)
+        theta = thetas(32, 1)
         out = fn(torch.as_tensor(theta, dtype=torch.float32, device=system.device))
         assert out.device.type == system.device.type and out.shape == (32,)
         lps.append(wrapper(theta))
     ref, got = lps
     assert np.all(np.abs(ref) < 1e29), ref
     assert np.all(np.abs(got - ref) <= 1e-4 * np.abs(ref)), (got, ref)
+
+
+def test_device_posterior_graphs_equal_eager_on_card():
+    """On the card the posterior replays one CUDA graph per walker count; at 8,
+    32 and 64 walkers, called in turns with new thetas, it equals the eager
+    route (``graphs=False``) bit for bit, and each torch call returns its own
+    tensor."""
+    import numpy as np
+
+    _need_card()
+    _, card, args = _posterior_systems()
+    graphed, graphed_fn, thetas = _posterior(card, args)
+    eager, _, _ = _posterior(card, args, graphs=False)
+    kept = []
+    for rep in range(2):
+        for W in (8, 32, 64):
+            theta = thetas(W, 10 * rep + W)
+            np.testing.assert_array_equal(graphed(theta), eager(theta))
+            kept.append((graphed_fn(torch.as_tensor(theta, dtype=torch.float32, device="cuda")), eager(theta)))
+    for out, ref in kept:
+        np.testing.assert_array_equal(out.cpu().numpy().astype(float), ref)
+
+
+def _one_step_on_card(batch, n_steps, bad_row=False):
+    pem, cfg, params, _ = _carry_on_card((2, 2))
+    cfg = dataclasses.replace(cfg, duration=n_steps * cfg.dt, average_start_time=(n_steps // 2) * cfg.dt)
+    params = {k: v[:batch].clone() for k, v in params.items()}
+    if bad_row:  # a huge voltage and a starved flow: the row runs away
+        params["V_d"][1], params["mdot_a"][1] = 3e7, 1e-9
+    return pem, cfg, params
+
+
+def test_one_step_graphs_equal_eager_on_card():
+    """The one-step driver on the card replays CUDA graphs; its outputs equal
+    its eager route (``graphs=False``) bit for bit, a runaway row included, and
+    both launch the step kernel ``num_steps`` times."""
+    _need_card()
+    from hallthrusterpem_tpu_torch.models.thruster.one_step import GRAPH_STEPS
+
+    pem, cfg, params = _one_step_on_card(8, 2 * GRAPH_STEPS + 38, bad_row=True)
+    out = {}
+    for graphs in (True, False):
+        before = _kernels.launch_counts["step"]
+        out[graphs] = simulate_batch_step(params, pem.base_B, cfg, graphs=graphs)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts["step"] == before + cfg.num_steps, graphs
+    assert all(_same_bits(out[True][k], out[False][k]) for k in out[False])
+
+
+def test_one_step_graph_tail_does_not_overshoot():
+    """``num_steps - 1`` not a multiple of ``GRAPH_STEPS``, and chunked: after
+    the eager first step a graph of ``GRAPH_STEPS`` steps and one of the
+    remainder are captured, so that exactly the steps asked for run (with
+    ``chunk_steps`` the chunked count); the outputs equal the eager route's."""
+    _need_card()
+    from hallthrusterpem_tpu_torch import cuda_graph
+    from hallthrusterpem_tpu_torch.models.thruster import one_step
+
+    pem, cfg, params = _one_step_on_card(4, one_step.GRAPH_STEPS + 41)
+    real, sizes = cuda_graph.capture, []
+
+    def recording(body, device, warmup=None):
+        g = real(body, device, warmup)
+        sizes.append(g.launches.get("step", 0))
+        return g
+
+    for chunk, n in ((0, cfg.num_steps), (60, 180)):
+        sizes.clear()
+        cuda_graph.capture = recording
+        try:
+            before = _kernels.launch_counts["step"]
+            got = simulate_batch_step(params, pem.base_B, cfg, chunk_steps=chunk)
+        finally:
+            cuda_graph.capture = real
+        assert _kernels.launch_counts["step"] == before + n, chunk
+        assert sizes == [one_step.GRAPH_STEPS, (n - 1) % one_step.GRAPH_STEPS], (chunk, sizes)
+        eager = simulate_batch_step(params, pem.base_B, cfg, chunk_steps=chunk, graphs=False)
+        assert all(_same_bits(got[k], eager[k]) for k in eager), chunk
+
+
+def test_launch_counter_across_replays():
+    """A launch made under a capture is counted at each replay of its graph, not
+    at the capture: three replays of a graph of five step launches add 15."""
+    _need_card()
+    from hallthrusterpem_tpu_torch import cuda_graph
+
+    _, cfg, _, (consts, state, _, sacc) = _carry_on_card((2, 2))
+    consts["scalars"][:, fs.P_ICIR] = sacc[:, fs.A_ICIR]
+    extras = torch.zeros((5,) + state.shape[1:], device="cuda")
+    fs.step(state, extras, consts, cfg)  # warm: the rate coefficients reach the card
+    before = _kernels.launch_counts["step"]
+    graph = cuda_graph.capture(lambda: [fs.step(state, extras, consts, cfg) for _ in range(5)], state.device)
+    assert graph.launches == {"step": 5} and _kernels.launch_counts["step"] == before
+    for k in range(1, 4):
+        graph.replay()
+        assert _kernels.launch_counts["step"] == before + 5 * k
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(state).all())
 
 
 def _main_path_on_card(batch=64, duration=2e-6):

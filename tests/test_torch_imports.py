@@ -2,8 +2,9 @@
 matplotlib or the JAX package: the machine with the card has none of them. Every
 module of the port is imported, the System layer's, the surrogates', the data
 loaders', UQ's, the scripts' (the workflow scripts, the physics studies, the
-kernel-against-lax parity and the MLP sweep among them), the plots' and the parallel layer's among them (scipy is allowed: the
-card's machine has it)."""
+kernel-against-lax parity and the MLP sweep among them), the plots', the
+parallel layer's, the bench's and the CUDA graph helper's among them (scipy is
+allowed: the card's machine has it)."""
 
 import subprocess
 import sys
@@ -54,5 +55,6 @@ def test_port_imports_without_jax():
                               "scripts.probe_uion", "scripts.diagnose_current", "scripts.probe_anom_shape",
                               "scripts.probe_anode_zone", "scripts.tune_r5", "scripts.diagnose_breathing",
                               "scripts.kernel_bench", "scripts.parity_tpu", "scripts.mlp_sweep", "viz",
+                              "bench", "cuda_graph",
                               "parallel", "parallel.mesh",
                               "parallel.distributed")} <= names

@@ -95,3 +95,156 @@ def test_only_the_all_state_check_catches_a_scrubbed_blow_up():
     assert not torch.isfinite(got["thrust"][1])
     for row in (0, 2):
         assert torch.equal(got["thrust"][row], clean["thrust"][row])
+
+
+def _python_loop_reference(params, base_B, cfg, chunk_steps=0):
+    """The driver as it was before its loop was made ready for CUDA graphs: the
+    averaging weight a Python float of a Python step index, the circuit current
+    a new tensor each step. The graph-ready loop must equal it bit for bit."""
+    _E = 1.602176634e-19
+    params = {k: v.to(torch.float32) for k, v in params.items()}
+    consts, state, prof, sacc = fs.init_carry(params, base_B, cfg)
+    physics = fs.Physics(cfg)
+    Z, NC, mi = cfg.ncharge, cfg.nc, cfg.mi
+    A_ch = cfg.geometry.channel_area
+    a_i2 = 1.380649e-23 * cfg.ion_temp_K / mi
+    rho_floor = 1e10 * mi
+    ex = NC - 2
+    B = state.shape[1]
+    extras = torch.empty((5, B, fs.lanes_for(cfg)), dtype=torch.float32)
+    scal_icir = consts["scalars"][:, fs.P_ICIR]
+    icir = sacc[:, fs.A_ICIR].clone()
+    failed = torch.zeros(B, dtype=torch.bool)
+    n_steps = cfg.num_steps
+    if chunk_steps and cfg.num_steps > chunk_steps:
+        n_steps = -(-cfg.num_steps // chunk_steps) * chunk_steps
+    for i in range(n_steps):
+        scal_icir.copy_(icir)
+        fs.step_plain(state, extras, consts, cfg, physics)
+        j_d, qs_t, qs_f = extras[0, :, 0], extras[0, :, 1], extras[0, :, 2]
+        icir = j_d * A_ch
+        thrust = I_B0 = mdot_ion = 0.0
+        for z in range(Z):
+            r, m = state[2 + 2 * z, :, ex], state[3 + 2 * z, :, ex]
+            u = m / torch.clamp(r, min=rho_floor)
+            thrust = thrust + A_ch * (m * u + r * a_i2)
+            I_B0 = I_B0 + (A_ch * _E * (z + 1)) * r / mi * u
+            mdot_ion = mdot_ion + A_ch * m
+            if z == 0:
+                u_exit1 = u
+        if cfg.solve_plume:
+            thrust, I_B0, mdot_ion = thrust * qs_t, I_B0 * qs_f, mdot_ion * qs_f
+        I_d = j_d * A_ch
+        failed |= ~torch.isfinite(I_d) | ~torch.isfinite(state).all(dim=2).all(dim=0)
+        w = float(cfg.avg_start_step <= i < cfg.num_steps)
+        sacc[:, fs.A_THRUST] += w * thrust
+        sacc[:, fs.A_ID] += w * I_d
+        sacc[:, fs.A_ID2] += w * I_d * I_d
+        sacc[:, fs.A_IB0] += w * I_B0
+        sacc[:, fs.A_MDOT] += w * mdot_ion
+        sacc[:, fs.A_UEXIT] += w * u_exit1
+        prof[:Z] += w * (state[3 : 3 + 2 * Z : 2] / torch.clamp(state[2 : 2 + 2 * Z : 2], min=rho_floor))
+        prof[Z:] += w * extras[1:]
+    sacc[:, fs.A_FAILED] = failed.float()
+    return fs.finalize(params, sacc, prof, consts, base_B, cfg)
+
+
+@pytest.mark.parametrize("ncharge,B,nsteps,groups,chunk,blow_up_row", [
+    (1, 6, 150, 1, 0, None),
+    (3, 5, 200, 1, 64, None),   # chunked: the steps past num_steps run unaveraged
+    (2, 4, 120, 2, 0, None),    # two neutral groups
+    (1, 3, 150, 1, 0, 1),       # a runaway row
+])
+def test_graph_ready_loop_equals_python_loop(ncharge, B, nsteps, groups, chunk, blow_up_row):
+    """The loop with its step index and averaging weight on the device, run
+    eagerly on the CPU, equals the Python-indexed loop bit for bit, and JAX's
+    ``simulate_batch_pallas`` (interpret mode) within the 1% of the cases above."""
+    cj, ct, pj, base_B, pt, bt = _setup(ncharge, nsteps, B, groups, blow_up_row=blow_up_row)
+    got = simulate_batch_step(pt, bt, ct, chunk_steps=chunk)
+    ref = _python_loop_reference(pt, bt, ct, chunk_steps=chunk)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert torch.equal(torch.isnan(got[k]), torch.isnan(ref[k])), k
+        assert torch.equal(torch.nan_to_num(got[k]), torch.nan_to_num(ref[k])), k
+    jax_ref = {k: np.asarray(v) for k, v in ps.simulate_batch_pallas(
+        pj, jnp.asarray(base_B), cj, interpret=True, chunk_steps=chunk).items()}
+    _compare({k: v.numpy() for k, v in got.items()}, jax_ref)
+
+
+def test_eager_flag_is_the_same_loop_on_cpu():
+    """``graphs=False`` and the default run the same loop on the CPU (graphs are
+    captured only on a CUDA device), with ``num_steps`` step calls."""
+    _, ct, _, _, pt, bt = _setup(1, 90, 3)
+    calls = [0]
+
+    def counting(state, extras, consts, cfg, physics):
+        calls[0] += 1
+        fs.step_plain(state, extras, consts, cfg, physics)
+
+    a = simulate_batch_step(pt, bt, ct, block=counting)
+    b = simulate_batch_step(pt, bt, ct, graphs=False)
+    assert calls[0] == ct.num_steps
+    for k in a:
+        assert torch.equal(torch.nan_to_num(a[k]), torch.nan_to_num(b[k])), k
+
+
+def test_replay_schedule_never_overshoots(monkeypatch):
+    """``one_step._replay``'s schedule on the CPU, with a stand-in for the
+    capture whose replay runs the captured function again: one eager step, then
+    graphs of ``GRAPH_STEPS`` steps and one of the remainder, exactly n steps."""
+    from hallthrusterpem_tpu_torch import cuda_graph
+    from hallthrusterpem_tpu_torch.models.thruster import one_step
+
+    sizes = []
+
+    class Replayed:
+        def __init__(self, body):
+            self.body = body
+
+        def replay(self):
+            self.body()
+
+    def stand_in(body, device, warmup=None):
+        before = calls[0]
+        body()  # what the capture records
+        sizes.append(calls[0] - before)
+        calls[0] = before  # a capture runs nothing on the card
+        return Replayed(body)
+
+    monkeypatch.setattr(cuda_graph, "capture", stand_in)
+    G = one_step.GRAPH_STEPS
+    for n, want in ((1, []), (2, [1]), (G + 1, [G]), (2 * G + 38, [G, 37]), (G // 2, [G // 2 - 1])):
+        calls, sizes[:] = [0], []
+        one_step._replay(lambda: calls.__setitem__(0, calls[0] + 1), n, "cpu")
+        assert calls[0] == n and sizes == want, (n, calls, sizes)
+
+
+def test_launch_count_under_capture_counts_at_each_replay():
+    """``cuda_graph.count`` while a capture records: nothing is counted then,
+    the graph keeps the launches and adds them at each replay."""
+    import threading
+
+    from hallthrusterpem_tpu_torch import cuda_graph
+
+    counts, lock = {"step": 0, "kstep": 0}, threading.Lock()
+    cuda_graph.count(counts, "step", lock)
+    tally = {}
+    cuda_graph._local.tally = tally
+    try:
+        for name in ("step", "step", "kstep", "step"):
+            cuda_graph.count(counts, name, lock)
+    finally:
+        cuda_graph._local.tally = None
+    assert counts == {"step": 1, "kstep": 0}
+
+    class Recorded:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    graph = cuda_graph.Graph(Recorded(), tally, None)
+    assert graph.launches == {"step": 3, "kstep": 1}
+    graph.replay()
+    graph.replay()
+    assert counts == {"step": 7, "kstep": 2} and graph._graph.replays == 2

@@ -200,6 +200,37 @@ def test_device_posterior_returns_tensor_on_device(r5_systems):
     assert torch.get_float32_matmul_precision() == "highest" or not torch.backends.cuda.matmul.allow_tf32
 
 
+@pytest.mark.parametrize("W", [7, 8, 32])
+def test_static_buffer_posterior_equals_eager(r5_systems, W):
+    """The device posterior's static-buffer route (theta copied into one (W, d)
+    buffer per walker count; on a CUDA device a graph replays from it), run
+    eagerly on the CPU, equals the function itself (``log_posterior.eager``) bit
+    for bit: three thetas of W walkers (one with a walker out of its domain),
+    each followed by a call with 5 walkers; every call returns its own tensor."""
+    tsys, _ = r5_systems
+    args = _posterior_args(noise_samples=3)
+    calib = [v for v in tsys.inputs() if v.category == "calibration"]
+    ops, obs, sig, fields = tmcmc.build_dataset(tsys, args)
+    wrapper, fn = tmcmc.build_device_posterior(tsys, args, calib, [v.name for v in calib], ops, obs, sig,
+                                               fields)
+    with np.load(EXPORT) as f:
+        draws = f["draws"]
+    rng = np.random.default_rng(W)
+    outs = []
+    for rep in range(3):
+        theta = draws[rng.choice(len(draws), W, replace=False)]
+        if rep == 1:
+            theta[0, 0] *= 100
+        t = torch.as_tensor(theta, dtype=torch.float32)
+        ref = fn.eager(t)
+        outs.append(fn(t))
+        assert torch.equal(outs[-1], ref)
+        np.testing.assert_array_equal(wrapper(theta), ref.numpy().astype(float))
+        fn(torch.as_tensor(draws[:5], dtype=torch.float32))
+    assert outs[1][0] == np.float32(-1e30) and np.all(outs[0].numpy() > -1e29)
+    assert not torch.equal(outs[0], outs[2])  # the buffer was refilled, the results kept
+
+
 def test_experimental_comparison_matches_jax(r5_systems, capsys, monkeypatch):
     """``run_experimental_comparison``'s surrogate column at the r5 posterior
     draws (both packages take the same 64 rows of the r5 chain), the nuisance
