@@ -17,6 +17,7 @@ import torch
 
 from hallthrusterpem_tpu_torch.core.dataset import Dataset
 from hallthrusterpem_tpu_torch.core.variables import Variable
+from hallthrusterpem_tpu_torch.tracing import span
 
 __all__ = ["Component", "resolve_model"]
 
@@ -119,10 +120,12 @@ class Component:
             kwargs = {k: v for k, v in kwargs.items() if k in sig_params}
         batch = {k: v for k, v in inputs.items() if k in self.input_names()}
 
-        t0 = time.perf_counter()
-        out = fn(batch, **kwargs)
-        _synchronize(out)
-        elapsed = time.perf_counter() - t0
+        with span(f"call_model.{self.name}"):
+            t0 = time.perf_counter()
+            out = fn(batch, **kwargs)
+            with span("wait.call_model"):
+                _synchronize(out)
+            elapsed = time.perf_counter() - t0
 
         n = max([1] + [int(np.shape(v)[0]) for v in batch.values() if np.ndim(v) > 0])
         prev_evals, prev_cost = self.model_costs.get(alpha, (0, 0.0))

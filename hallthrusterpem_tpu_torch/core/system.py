@@ -23,6 +23,7 @@ import torch
 from hallthrusterpem_tpu_torch.core.component import Component
 from hallthrusterpem_tpu_torch.core.dataset import Dataset
 from hallthrusterpem_tpu_torch.core.variables import Variable
+from hallthrusterpem_tpu_torch.tracing import span
 from hallthrusterpem_tpu_torch.utils import resolve_device
 
 __all__ = ["System"]
@@ -263,36 +264,37 @@ class System:
         :param training: MISC surrogates evaluate their active index set only
         :param qoi_ind: return only these outputs (and their coordinates)
         """
-        data: Dataset = {}
-        for name, value in samples.items():
-            value = torch.as_tensor(value, device=self.device)
-            var = self._variables.get(name)
-            data[name] = var.denormalize(value) if (normalized and var is not None) else value
+        with span("predict"):
+            data: Dataset = {}
+            for name, value in samples.items():
+                value = torch.as_tensor(value, device=self.device)
+                var = self._variables.get(name)
+                data[name] = var.denormalize(value) if (normalized and var is not None) else value
 
-        if use_model is None and self.system_surrogate is not None:
-            data.update(self.system_surrogate.predict(data, training=training, qoi_ind=qoi_ind))
+            if use_model is None and self.system_surrogate is not None:
+                data.update(self.system_surrogate.predict(data, training=training, qoi_ind=qoi_ind))
+                return self._select(data, qoi_ind)
+
+            for comp in self.components:
+                missing = [n for n in comp.input_names() if n not in data]
+                if missing:
+                    raise KeyError(f"Component {comp.name} missing inputs {missing}")
+                batch = {n: data[n] for n in comp.input_names()}
+                if verbose:
+                    self.logger.info("Evaluating component %s ...", comp.name)
+                if use_model is None and comp.surrogate is not None:
+                    out = comp.surrogate.predict(batch, training=training)
+                    data.update({k: torch.as_tensor(v, device=self.device) for k, v in out.items()})
+                    continue
+                extra = {"device": self.device}
+                if model_dir is not None:
+                    comp_dir = Path(model_dir) / comp.name
+                    comp_dir.mkdir(parents=True, exist_ok=True)
+                    extra["output_path"] = str(comp_dir)
+                if use_model == "worst":
+                    extra["model_fidelity"] = tuple(0 for _ in comp.model_fidelity)
+                data.update(comp.call_model(batch, **extra))
             return self._select(data, qoi_ind)
-
-        for comp in self.components:
-            missing = [n for n in comp.input_names() if n not in data]
-            if missing:
-                raise KeyError(f"Component {comp.name} missing inputs {missing}")
-            batch = {n: data[n] for n in comp.input_names()}
-            if verbose:
-                self.logger.info("Evaluating component %s ...", comp.name)
-            if use_model is None and comp.surrogate is not None:
-                out = comp.surrogate.predict(batch, training=training)
-                data.update({k: torch.as_tensor(v, device=self.device) for k, v in out.items()})
-                continue
-            extra = {"device": self.device}
-            if model_dir is not None:
-                comp_dir = Path(model_dir) / comp.name
-                comp_dir.mkdir(parents=True, exist_ok=True)
-                extra["output_path"] = str(comp_dir)
-            if use_model == "worst":
-                extra["model_fidelity"] = tuple(0 for _ in comp.model_fidelity)
-            data.update(comp.call_model(batch, **extra))
-        return self._select(data, qoi_ind)
 
     @staticmethod
     def _select(data: Dataset, qoi_ind) -> Dataset:

@@ -39,6 +39,7 @@ from hallthrusterpem_tpu_torch.models.thruster.mapping import (
 )
 from hallthrusterpem_tpu_torch.models.thruster.postprocess import cycle_averaged_current
 from hallthrusterpem_tpu_torch.ops.interp import interp1d
+from hallthrusterpem_tpu_torch.tracing import count, span
 from hallthrusterpem_tpu_torch.utils import resolve_device
 
 #: the component's data-exchange type: name -> tensor
@@ -255,54 +256,57 @@ def run_simulation(json_input, device=None, mesh=None, solver=None, **_compat) -
         with open(json_input, "r", encoding="utf-8") as fd:
             json_input = json.load(fd)
 
-    cfg, params, base_B = _tree_to_solver_inputs(json_input, device)
-    scalar_in = params["V_d"].ndim == 0
-    if scalar_in:
-        params = {k: v.reshape(1) for k, v in params.items()}
-    if mesh is None:
-        raw = dispatch_solver(params, base_B, cfg, solver=solver)
-    else:
-        raw = _solve_on_mesh(params, base_B, cfg, mesh, solver=solver)
-    if scalar_in:
-        raw = {k: v[0] for k, v in raw.items()}
-    z_axis = 0 if scalar_in else 1
+    with span("thruster.input"):
+        cfg, params, base_B = _tree_to_solver_inputs(json_input, device)
+        scalar_in = params["V_d"].ndim == 0
+        if scalar_in:
+            params = {k: v.reshape(1) for k, v in params.items()}
+    with span("thruster.solve"):
+        if mesh is None:
+            raw = dispatch_solver(params, base_B, cfg, solver=solver)
+        else:
+            raw = _solve_on_mesh(params, base_B, cfg, mesh, solver=solver)
+    with span("thruster.output"):
+        if scalar_in:
+            raw = {k: v[0] for k, v in raw.items()}
+        z_axis = 0 if scalar_in else 1
 
-    average = {
-        "thrust": raw["thrust"],
-        "discharge_current": raw["discharge_current"],
-        "discharge_current_std": raw["discharge_current_std"],
-        "ion_current": raw["ion_current"],
-        "current_eff": raw["current_eff"],
-        "mass_eff": raw["mass_eff"],
-        "voltage_eff": raw["voltage_eff"],
-        "anode_eff": raw["anode_eff"],
-        # ui[Z] is the (batch, NC) velocity profile of charge state Z+1
-        "ui": [raw["ui"].select(z_axis, zi) for zi in range(cfg.ncharge)],
-        "z": raw["z"],
-        "nu_anom": raw["nu_anom"],
-        "B": raw["B"],
-        "Tev": raw["Tev"],
-        "ne": raw["ne"],
-        "nn": raw["nn"],
-        "potential": raw["potential"],
-        "E": raw["E"],
-    }
-    if "discharge_current_trace" in raw:
-        average["discharge_current_trace"] = raw["discharge_current_trace"]
-        average["trace_times"] = raw["trace_times"]
-        if json_input.get("postprocess", {}).get("cycle_average"):
-            i_cyc = cycle_averaged_current(raw["discharge_current_trace"], raw["trace_times"],
-                                           cfg.average_start_time)
-            average["discharge_current"] = torch.where(
-                torch.isfinite(i_cyc), i_cyc, average["discharge_current"])
-    output_tree = {
-        "output": {"average": average},
-        "config": json_input.get("config", {}),
-        "simulation": json_input.get("simulation", {}),
-        "postprocess": json_input.get("postprocess", {}),
-    }
-    if out_file := json_input.get("postprocess", {}).get("output_file"):
-        _write_output_json(out_file, output_tree)
+        average = {
+            "thrust": raw["thrust"],
+            "discharge_current": raw["discharge_current"],
+            "discharge_current_std": raw["discharge_current_std"],
+            "ion_current": raw["ion_current"],
+            "current_eff": raw["current_eff"],
+            "mass_eff": raw["mass_eff"],
+            "voltage_eff": raw["voltage_eff"],
+            "anode_eff": raw["anode_eff"],
+            # ui[Z] is the (batch, NC) velocity profile of charge state Z+1
+            "ui": [raw["ui"].select(z_axis, zi) for zi in range(cfg.ncharge)],
+            "z": raw["z"],
+            "nu_anom": raw["nu_anom"],
+            "B": raw["B"],
+            "Tev": raw["Tev"],
+            "ne": raw["ne"],
+            "nn": raw["nn"],
+            "potential": raw["potential"],
+            "E": raw["E"],
+        }
+        if "discharge_current_trace" in raw:
+            average["discharge_current_trace"] = raw["discharge_current_trace"]
+            average["trace_times"] = raw["trace_times"]
+            if json_input.get("postprocess", {}).get("cycle_average"):
+                i_cyc = cycle_averaged_current(raw["discharge_current_trace"], raw["trace_times"],
+                                               cfg.average_start_time)
+                average["discharge_current"] = torch.where(
+                    torch.isfinite(i_cyc), i_cyc, average["discharge_current"])
+        output_tree = {
+            "output": {"average": average},
+            "config": json_input.get("config", {}),
+            "simulation": json_input.get("simulation", {}),
+            "postprocess": json_input.get("postprocess", {}),
+        }
+        if out_file := json_input.get("postprocess", {}).get("output_file"):
+            _write_output_json(out_file, output_tree)
     return output_tree
 
 
@@ -366,11 +370,12 @@ def hallthruster_jl(
     if pem_to_julia is not None:
         _map.update(pem_to_julia)
 
-    tree = format_input_tree(
-        dict(thruster_inputs or {}), _map, thruster=thruster, config=config,
-        simulation=simulation, postprocess=postprocess, model_fidelity=model_fidelity,
-        fidelity_function=fidelity_function,
-    )
+    with span("thruster.input"):
+        tree = format_input_tree(
+            dict(thruster_inputs or {}), _map, thruster=thruster, config=config,
+            simulation=simulation, postprocess=postprocess, model_fidelity=model_fidelity,
+            fidelity_function=fidelity_function,
+        )
     if output_path is not None:
         fname = "hallthruster_jl"
         if name := tree["config"].get("thruster", {}).get("name"):
@@ -378,48 +383,54 @@ def hallthruster_jl(
         fname += f"_{int(time.time() * 1e6) % 2**31:x}.json"
         tree["postprocess"]["output_file"] = str((Path(output_path) / fname).resolve())
 
-    t1 = time.time()
+    t1 = time.perf_counter()
     sim_results = run_simulation(tree, device=device, mesh=mesh, solver=solver)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t2 = time.time()
+        with span("wait.hallthruster_jl"):
+            torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
 
-    outputs = {k: torch.as_tensor(v, device=device) for k, v in convert_to_pem(sim_results, _map).items()}
+    with span("thruster.output"):
+        outputs = {k: torch.as_tensor(v, device=device) for k, v in convert_to_pem(sim_results, _map).items()}
 
-    thrust = outputs.get("T", torch.zeros((), device=device))
-    beam = outputs.get("I_B0", torch.zeros((), device=device))
-    bad = (thrust < 0) | (beam < 0)
-    if "I_d" in outputs:
-        bad = bad | (outputs["I_d"] < 0)
-    if "eta_m" in outputs:
-        bad = bad | (outputs["eta_m"] < 0)
-    # the beam current cannot exceed the fully-stripped mass-flow limit
-    # Z e mdot / m_i (x1.5 margin for ingestion and averaging noise)
-    mdot_any = tree.get("config", {}).get("anode_mass_flow_rate")
-    if mdot_any is not None and "I_B0" in outputs:
-        mi = atomic_mass_kg(tree["config"].get("propellant", "Xenon"))
-        zmax = int(_extreme(tree["config"].get("ncharge", 3), largest=True))
-        i_eq = FUNDAMENTAL_CHARGE * torch.as_tensor(mdot_any, dtype=torch.float64, device=device) / mi
-        bad = bad | (outputs["I_B0"] > 1.5 * zmax * i_eq)
-        # a self-sustained discharge carries (time-averaged) between ~0.2 and ~8
-        # times e mdot / m_i; judged only on quasi-steady averages, whose window
-        # starts after the ~0.1-0.2 ms ignition transient
-        avg_start = float(tree.get("postprocess", {}).get("average_start_time", 0.0) or 0.0)
-        if "I_d" in outputs and avg_start >= 2e-4:
-            i_d = outputs["I_d"]
-            bad = bad | (i_d < 0.2 * i_eq) | (i_d > 8.0 * i_eq)
-    if shock_threshold is not None and "u_ion" in outputs:
-        ui = outputs["u_ion"]
-        z = torch.broadcast_to(outputs["u_ion_coords"], ui.shape)
-        z_peak = torch.gather(z, -1, torch.argmax(ui, dim=-1, keepdim=True))[..., 0]
-        bad = bad | (z_peak < shock_threshold)
-    bad = ~torch.isfinite(thrust) | bad
-    if bool(bad.any()):
-        # as in the JAX package: once any row is masked, every output is float64
-        for key, val in outputs.items():
-            val = val.to(torch.float64)
-            mask = bad.reshape(bad.shape + (1,) * (val.ndim - bad.ndim))
-            outputs[key] = torch.where(mask, torch.nan, val)
+    with span("thruster.guards"):
+        thrust = outputs.get("T", torch.zeros((), device=device))
+        beam = outputs.get("I_B0", torch.zeros((), device=device))
+        bad = (thrust < 0) | (beam < 0)
+        if "I_d" in outputs:
+            bad = bad | (outputs["I_d"] < 0)
+        if "eta_m" in outputs:
+            bad = bad | (outputs["eta_m"] < 0)
+        # the beam current cannot exceed the fully-stripped mass-flow limit
+        # Z e mdot / m_i (x1.5 margin for ingestion and averaging noise)
+        mdot_any = tree.get("config", {}).get("anode_mass_flow_rate")
+        if mdot_any is not None and "I_B0" in outputs:
+            mi = atomic_mass_kg(tree["config"].get("propellant", "Xenon"))
+            zmax = int(_extreme(tree["config"].get("ncharge", 3), largest=True))
+            i_eq = FUNDAMENTAL_CHARGE * torch.as_tensor(mdot_any, dtype=torch.float64, device=device) / mi
+            bad = bad | (outputs["I_B0"] > 1.5 * zmax * i_eq)
+            # a self-sustained discharge carries (time-averaged) between ~0.2 and ~8
+            # times e mdot / m_i; judged only on quasi-steady averages, whose window
+            # starts after the ~0.1-0.2 ms ignition transient
+            avg_start = float(tree.get("postprocess", {}).get("average_start_time", 0.0) or 0.0)
+            if "I_d" in outputs and avg_start >= 2e-4:
+                i_d = outputs["I_d"]
+                bad = bad | (i_d < 0.2 * i_eq) | (i_d > 8.0 * i_eq)
+        if shock_threshold is not None and "u_ion" in outputs:
+            ui = outputs["u_ion"]
+            z = torch.broadcast_to(outputs["u_ion_coords"], ui.shape)
+            z_peak = torch.gather(z, -1, torch.argmax(ui, dim=-1, keepdim=True))[..., 0]
+            bad = bad | (z_peak < shock_threshold)
+        bad = ~torch.isfinite(thrust) | bad
+        with span("wait.guards"):
+            masked = int(bad.sum())
+        count(rows_attempted=bad.numel(), rows_masked=masked)
+        if masked:
+            # as in the JAX package: once any row is masked, every output is float64
+            for key, val in outputs.items():
+                val = val.to(torch.float64)
+                mask = bad.reshape(bad.shape + (1,) * (val.ndim - bad.ndim))
+                outputs[key] = torch.where(mask, torch.nan, val)
 
     batch_n = max(int(np.prod(tuple(thrust.shape))), 1)
     outputs["model_cost"] = torch.full(tuple(thrust.shape), (t2 - t1) / batch_n, dtype=torch.float64,

@@ -28,10 +28,12 @@ float32 rounding matches it as closely as eager PyTorch allows.
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
 
+from hallthrusterpem_tpu_torch import cuda_graph
 from hallthrusterpem_tpu_torch.constants import ELECTRON_MASS, FUNDAMENTAL_CHARGE
 from hallthrusterpem_tpu_torch.models.thruster.config import (
     SolverConfig,
@@ -47,6 +49,7 @@ from hallthrusterpem_tpu_torch.models.thruster.solver import (
     anomalous_profile,
     wall_energy_loss_rate,
 )
+from hallthrusterpem_tpu_torch.tracing import count, span
 
 _E = FUNDAMENTAL_CHARGE
 _ME = ELECTRON_MASS
@@ -551,7 +554,10 @@ def kstep_plain(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
 def kstep(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
           physics: Physics | None = None) -> None:
     """One K-step block, in place. A CUDA tensor goes to the hand-written kernel
-    (which raises if it cannot launch); a CPU tensor to the plain version."""
+    (which raises if it cannot launch); a CPU tensor to the plain version. The
+    host time of the call is added to ``tracing.counts`` (``kstep_host_ns``,
+    ``kstep_blocks``) unless this thread captures a CUDA graph."""
+    t0 = time.perf_counter_ns()
     if state.device.type == "cuda":
         from hallthrusterpem_tpu_torch.models.thruster import _kernels
 
@@ -560,6 +566,8 @@ def kstep(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
         kstep_plain(state, prof, sacc, consts, i0, K, cfg, physics)
     else:
         raise ValueError(f"kstep: unsupported device {state.device}")
+    if getattr(cuda_graph._local, "tally", None) is None:
+        count(kstep_host_ns=time.perf_counter_ns() - t0, kstep_blocks=1)
 
 
 def step_plain(state, extras, consts, cfg: SolverConfig, physics: Physics | None = None) -> None:
@@ -685,7 +693,8 @@ def finalize(params: dict, sacc, prof, consts: dict, base_B, cfg: SolverConfig) 
     zeros = torch.zeros((B, 1), dtype=E_avg.dtype, device=E_avg.device)
     phi = params["V_d"][:, None] - torch.cat(
         [zeros, torch.cumsum(0.5 * (E_avg[:, 1:] + E_avg[:, :-1]) * cfg.dz, dim=1)], dim=1)
-    z = torch.as_tensor(cfg.cell_centers(), dtype=torch.float32, device=E_avg.device)
+    with span("wait.finalize"):  # a copy from the host: it waits for the launches queued before it
+        z = torch.as_tensor(cfg.cell_centers(), dtype=torch.float32, device=E_avg.device)
     return {
         "thrust": thrust,
         "discharge_current": I_d,
@@ -743,26 +752,29 @@ def simulate_batch_multi(params: dict, base_B: torch.Tensor, cfg: SolverConfig,
     trace = cfg.num_save > 0
     if trace:
         inner_steps = min(inner_steps, MAX_TRACE_STEPS)
-    params = {k: v.to(torch.float32) for k, v in params.items()}
-    base_B = base_B.to(device=params["V_d"].device, dtype=torch.float32)
-    consts, state, prof, sacc = init_carry(params, base_B, cfg)
-    physics = Physics(cfg) if block is kstep_plain or state.device.type == "cpu" else None
-    stride = max(1, cfg.num_steps // cfg.num_save) if trace else 1
-    traces = torch.zeros((state.shape[1], cfg.num_save), dtype=torch.float32, device=state.device)
-    for i0 in range(0, cfg.num_steps, inner_steps):
-        block(state, prof, sacc, consts, i0, inner_steps, cfg, physics)
-        # save points n * stride in [i0, i0 + K): block-local trace lanes n * stride - i0
-        n0 = -(-i0 // stride)
-        n1 = min(cfg.num_save, -(-(i0 + inner_steps) // stride))
-        if n1 > n0:
-            lane0 = A_TRACE0 + n0 * stride - i0
-            traces[:, n0:n1] = sacc[:, lane0 : lane0 + (n1 - n0 - 1) * stride + 1 : stride]
-    out = finalize(params, sacc, prof, consts, base_B, cfg)
-    if trace:
-        failed = sacc[:, A_FAILED] > 0.5
-        save_idx = torch.arange(cfg.num_save, device=state.device) * stride
-        out["discharge_current_trace"] = torch.where(failed[:, None], torch.nan, traces)
-        out["trace_times"] = torch.broadcast_to((save_idx.float() + 1.0) * cfg.dt, traces.shape)
+    with span("thruster.init"):
+        params = {k: v.to(torch.float32) for k, v in params.items()}
+        base_B = base_B.to(device=params["V_d"].device, dtype=torch.float32)
+        consts, state, prof, sacc = init_carry(params, base_B, cfg)
+        physics = Physics(cfg) if block is kstep_plain or state.device.type == "cpu" else None
+        stride = max(1, cfg.num_steps // cfg.num_save) if trace else 1
+        traces = torch.zeros((state.shape[1], cfg.num_save), dtype=torch.float32, device=state.device)
+    with span("thruster.launches"):
+        for i0 in range(0, cfg.num_steps, inner_steps):
+            block(state, prof, sacc, consts, i0, inner_steps, cfg, physics)
+            # save points n * stride in [i0, i0 + K): block-local trace lanes n * stride - i0
+            n0 = -(-i0 // stride)
+            n1 = min(cfg.num_save, -(-(i0 + inner_steps) // stride))
+            if n1 > n0:
+                lane0 = A_TRACE0 + n0 * stride - i0
+                traces[:, n0:n1] = sacc[:, lane0 : lane0 + (n1 - n0 - 1) * stride + 1 : stride]
+    with span("thruster.average"):
+        out = finalize(params, sacc, prof, consts, base_B, cfg)
+        if trace:
+            failed = sacc[:, A_FAILED] > 0.5
+            save_idx = torch.arange(cfg.num_save, device=state.device) * stride
+            out["discharge_current_trace"] = torch.where(failed[:, None], torch.nan, traces)
+            out["trace_times"] = torch.broadcast_to((save_idx.float() + 1.0) * cfg.dt, traces.shape)
     return out
 
 

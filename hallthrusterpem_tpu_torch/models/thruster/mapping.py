@@ -19,6 +19,7 @@ from hallthrusterpem_tpu_torch.constants import (
     FUNDAMENTAL_CHARGE,
     MOLECULAR_WEIGHTS,
 )
+from hallthrusterpem_tpu_torch.tracing import span
 
 __all__ = ["PEM_TO_JULIA", "convert_to_config", "convert_to_pem", "default_model_fidelity",
            "format_input_tree"]
@@ -112,12 +113,14 @@ def convert_to_pem(tree: dict, pem_to_julia: dict) -> dict:
 def _extreme(value, largest: bool) -> float:
     """Largest or smallest element of a scalar, array or tensor, as a float,
     NaN elements skipped (NaN when all are): a failed or padded row must not
-    set the whole batch's grid or time step."""
-    t = torch.as_tensor(value, dtype=torch.float64).reshape(-1)
-    t = t[~torch.isnan(t)]
-    if t.numel() == 0:
-        return float("nan")
-    return float(t.max() if largest else t.min())
+    set the whole batch's grid or time step. The host waits here for a tensor
+    on the card."""
+    with span("wait._extreme"):
+        t = torch.as_tensor(value, dtype=torch.float64).reshape(-1)
+        t = t[~torch.isnan(t)]
+        if t.numel() == 0:
+            return float("nan")
+        return float(t.max() if largest else t.min())
 
 
 def default_model_fidelity(model_fidelity: tuple, json_config: dict, cfl: float = 0.2) -> dict:

@@ -238,6 +238,36 @@ def test_system_predict_launches_kstep():
     assert out["T"].device.type == "cuda" and out["j_ion"].shape == (16, 91)
 
 
+def test_system_predict_blocks_the_host_inside_its_wait_spans():
+    """Under ``torch.profiler`` on the card, a ``System.predict`` call of the
+    pem_v0 SPT-100 system spends at least 99% of its host time in the CUDA
+    runtime's synchronising calls inside the program's ``htpem.wait.*`` spans,
+    its launch loop lies inside the solve, and no span of the program is put on
+    the card's timeline, where it would count as busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+
+    _need_card()
+    system = load_system("pem_v0_SPT-100.json", device="cuda")
+    comp = system["Thruster"]
+    comp.model_kwargs["simulation"] = dict(comp.model_kwargs["simulation"], duration=2e-5)
+    samples = system.sample_inputs(16, generator=torch.Generator().manual_seed(3))
+    system.predict(samples, use_model="best")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        system.predict(samples, use_model="best")
+    events = prof.profiler.kineto_results.events()
+    assert not [e.name() for e in events if e.name().startswith("htpem.") and e.device_type().name != "CPU"]
+    host = [(e.name(), e.start_ns(), e.end_ns()) for e in events if e.device_type().name == "CPU"]
+    spans = {n: (s, t) for n, s, t in host if n in ("htpem.thruster.solve", "htpem.thruster.launches")}
+    assert spans["htpem.thruster.solve"][0] <= spans["htpem.thruster.launches"][0]
+    assert spans["htpem.thruster.launches"][1] <= spans["htpem.thruster.solve"][1]
+    waits = [(s, t) for n, s, t in host if n.startswith("htpem.wait.")]
+    blocked = [(s, t) for n, s, t in host if n in ("cudaStreamSynchronize", "cudaDeviceSynchronize")]
+    inside = sum(t - s for s, t in blocked if any(a <= s and t <= b for a, b in waits))
+    assert inside >= 0.99 * sum(t - s for s, t in blocked) > 0
+
+
 def test_mlp_forward_on_card_matches_cpu():
     """The r5 width (21 inputs, 4 x 512, 8 members, 36 outputs) on random
     weights, 4096 rows: the card within 1e-5 of the CPU's scale; with TF32
