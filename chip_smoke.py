@@ -6,8 +6,9 @@
 Phases, each printed with its seconds:
 
 1. device: the card's name, and its name and power limit from ``nvidia-smi``;
-2. build: the K-step kernel (``csrc/kstep.cu``) and the one-step kernel
-   (``csrc/step.cu``), one nvcc each, started together, and ptxas's
+2. build: the K-step kernel (``csrc/kstep.cu``), the one-step kernel
+   (``csrc/step.cu``) and the plume's kernel (``models/csrc/plume.cu``), one
+   nvcc each, started together, and ptxas's
    register / shared-memory / spill lines; the K-step kernel's blocks per SM
    at the main path's config, and from its SASS (``cuobjdump``) the block
    barriers and instructions of one step and the instruction count by opcode;
@@ -138,14 +139,23 @@ Phases, each printed with its seconds:
     with its defaults as a child process: its JSON line with ``bench.py``'s
     keys and a finite value, at least ``BENCH_FINITE`` of 1024 rows finite,
     ``ceil(steps / 50)`` kstep launches in each timed run, and its value within
-    ``BENCH_GATE`` of ``1024 * 0.5 sim-ms / (launches x phase 6's ms a launch)``.
+    ``BENCH_GATE`` of ``1024 * 0.5 sim-ms / (launches x phase 6's ms a launch)``;
+22. the plume's kernel against its plain version at the rows a call of each
+    benchmark cell holds (``PLUME_ROWS``), with the thrust ``T`` and every
+    eighth row masked (NaN ``I_B0`` and ``T``), in float32, in float64 and mixed
+    as the Thruster gives them once a row is masked (``I_B0`` and ``T`` in
+    float64, the rest float32): every output, ``T_c`` among them, of the plain
+    version's type and within ``PLUME_TOL`` (scaled; the divergence angle in
+    float32 within ``PLUME_DIV_TOL_F32``), one launch a call; its time on the
+    card a launch (back to back), its host time a call, its bound, and the plain
+    version's wall a call and operators a call.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
 line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"studies": {...}}``
 line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), a ``{"bench": {...}}``
 line (phase 21), a ``{"kernels": [...]}``
-line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
+line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``, ``plume``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
 
@@ -166,6 +176,7 @@ from pathlib import Path
 
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+LEAD_CYCLES = 200_000_000  # ~0.1 s: the card's spin before back-to-back timed launches
 KERNEL_SOURCE = "hallthrusterpem_tpu_torch/models/thruster/csrc/kstep.cu"
 KERNEL_REPLACES = "hallthrusterpem_tpu/models/thruster/pallas_step.py:677"
 STEP_SOURCE = "hallthrusterpem_tpu_torch/models/thruster/csrc/step.cu"
@@ -278,6 +289,12 @@ SWEEP_STEPS = 300
 BENCH_TIMEOUT = 300
 BENCH_FINITE = 1014
 BENCH_GATE = (0.90, 1.10)
+# phase 22: the plume's kernel
+PLUME_SOURCE = "hallthrusterpem_tpu_torch/models/csrc/plume.cu"
+PLUME_ROWS = (23, 1024, 1472)  # a call of a22_mcmc_eval, a00_labelling, a22_predictive
+PLUME_TOL = 1e-6
+PLUME_DIV_TOL_F32 = 5e-6  # the sum order alone moves arccos by up to 2.1e-6 (tests/test_torch_plume_emulated.py)
+PLUME_REPS = 200
 
 
 def log(msg: str) -> None:
@@ -406,15 +423,15 @@ def sm_clock_under_load(launch, n_launch: int) -> list:
 
 def cuda_ms(fn, reps: int, lead: bool = False) -> float:
     """Milliseconds per call of ``fn`` over ``reps`` calls, between CUDA events.
-    With ``lead`` the card first spins for ~10 ms (2e7 cycles) so that the host
-    enqueues every timed call before the first one starts: the events then
+    With ``lead`` the card first spins for ~0.1 s (``LEAD_CYCLES``) so that the
+    host enqueues every timed call before the first one starts: the events then
     bracket back-to-back kernels, not the host's launch pace, which a kernel of a
-    few tens of µs launched through Python checks and ctypes would measure."""
+    few µs launched through Python checks and ctypes would measure."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if lead:
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -1857,6 +1874,94 @@ def bench_phase(kstep_ms: float) -> dict:
             "predicted_sim_ms_per_s": predicted, "measured_over_predicted": ratio, "child_wall_s": wall}
 
 
+def plume_inputs(rows: int, case: str, seed: int) -> dict:
+    """The plume's System inputs for ``rows`` rows on the card: drawn from the
+    pem_v0 SPT-100 distributions, with I_B0 and T as the Thruster gives them and
+    every eighth row NaN in both (a row the Thruster masked). ``case``:
+    ``float32`` or ``float64`` for every input, or ``mixed``: I_B0 and T in
+    float64 and the rest float32, as the Thruster gives them once a row is
+    masked."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = {"P_b": 10 ** rng.uniform(-8, -4, rows), "c0": rng.uniform(0, 1, rows),
+         "c1": rng.uniform(0.1, 1, rows), "c2": rng.uniform(-15, 15, rows),
+         "c3": rng.uniform(0.2, np.pi / 2, rows), "c4": 10 ** rng.uniform(18, 22, rows),
+         "c5": 10 ** rng.uniform(14, 18, rows), "sigma_cex": rng.uniform(51e-20, 58e-20, rows),
+         "I_B0": rng.uniform(2, 5, rows), "T": rng.uniform(0.04, 0.1, rows)}
+    x["I_B0"][::8] = x["T"][::8] = np.nan
+    wide = ("I_B0", "T") if case == "mixed" else ()
+    dtype = torch.float64 if case == "float64" else torch.float32
+    return {k: torch.as_tensor(v, dtype=torch.float64 if k in wide else dtype, device="cuda")
+            for k, v in x.items()}
+
+
+def plume_phase() -> dict:
+    """Phase 22: the plume's kernel against its plain version and timed, at
+    each of ``PLUME_ROWS``; returns its entry of the kernels line."""
+    import torch
+
+    from hallthrusterpem_tpu_torch.models import plume
+
+    t0 = time.perf_counter()
+    rec = {"name": "plume", "route": "cuda", "source": PLUME_SOURCE,
+           "replaces": "none: the plume's eager version made ~1,300 launches a call",
+           "scaled_err_tolerance": PLUME_TOL, "div_angle_tolerance_float32": PLUME_DIV_TOL_F32,
+           "library_ms": None, "rows": {}}
+    for rows in PLUME_ROWS:
+        for case in ("float32", "float64", "mixed"):
+            x = plume_inputs(rows, case, seed=rows)
+            plume.current_density(x)  # the grid on this card
+            plume.reset_counts()
+            got = plume.current_density(x)
+            ref = plume.current_density_plain(x)
+            torch.cuda.synchronize()
+            assert plume.launch_counts["plume"] == 1, plume.launch_counts
+            errs = {}
+            assert set(got) == set(ref) and "T_c" in ref, (sorted(got), sorted(ref))
+            for k, r in ref.items():
+                assert got[k].dtype == r.dtype and got[k].shape == r.shape, (rows, case, k, got[k].dtype, r.dtype)
+                fin = torch.isfinite(r)
+                assert torch.equal(torch.isfinite(got[k]), fin), (rows, case, k)
+                errs[k] = scaled_err(got[k][fin], r[fin])
+                tol = PLUME_DIV_TOL_F32 if (k == "div_angle" and r.dtype == torch.float32) else PLUME_TOL
+                assert errs[k] < tol, (rows, case, k, errs[k])
+            label = f"{rows}_{case}"
+            entry = {"max_scaled_err": errs, "T_c_dtype": str(got["T_c"].dtype)}
+            if case == "float32":
+                ms = cuda_ms(lambda: plume.current_density(x), PLUME_REPS, lead=True)
+                torch.cuda._sleep(LEAD_CYCLES)
+                t1 = time.perf_counter()
+                for _ in range(PLUME_REPS):
+                    plume.current_density(x)
+                host_us = (time.perf_counter() - t1) / PLUME_REPS * 1e6
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(5):
+                    plume.current_density_plain(x)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t1) / 5 * 1e3
+                ops = count_ops(lambda: plume.current_density_plain(x))
+                n_bytes = 4 * (rows * (10 + 91 + 2) + 4 * 91)  # inputs, j_ion, div_angle and T_c, the grid
+                ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
+                entry.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
+                             plain_operators=count_dispatches(lambda: plume.current_density_plain(x)),
+                             ops=ops, bytes=n_bytes, bound_ms=max(ops_ms, bytes_ms),
+                             bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                log(f"[22 plume] B={rows}: {ms * 1e3:.2f} us a launch on the card (back to back), "
+                    f"{host_us:.1f} us of host time a call, bound {entry['bound_ms'] * 1e3:.3f} us "
+                    f"({entry['bound_by']}: {ops:.3e} ops, {n_bytes:.3e} bytes); plain {plain_ms:.2f} ms "
+                    f"a call, {entry['plain_operators']} operators")
+            log(f"[22 plume] B={rows} {case}: 1 launch, T_c {got['T_c'].dtype}, max scaled error "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            rec["rows"][label] = entry
+    main_row = rec["rows"][f"{PLUME_ROWS[-1]}_float32"]
+    rec.update({k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, launches=1)
+    log(f"[22 plume] done ({time.perf_counter() - t0:.2f} s)")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -1870,7 +1975,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script checks the port on a GPU")
 
     import hallthrusterpem_tpu_torch.models.thruster as thruster
-    from hallthrusterpem_tpu_torch import cuda_graph
+    from hallthrusterpem_tpu_torch import cuda_graph, kernel_build
     from hallthrusterpem_tpu_torch.constants import FUNDAMENTAL_CHARGE
     from hallthrusterpem_tpu_torch.core.json_loader import load_system
     from hallthrusterpem_tpu_torch.models.cathode import cathode_coupling
@@ -1897,8 +2002,9 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     dev = torch.device("cuda")
+    kernel_build.build_all()
     _kernels.load_libraries()
-    for name, info in _kernels.build_info.items():
+    for name, info in kernel_build.build_info.items():
         log(f"[2 build] {name} -> {info['path']} in {info['seconds']:.2f} s (cached={info['cached']})")
         for line in info["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
@@ -2252,6 +2358,8 @@ def main() -> int:
     parity_sweep = parity_sweep_phase()
     # ---- 21. the port's bench.py as its user runs it
     bench = bench_phase(kstep_ms)
+    # ---- 22. the plume's kernel
+    plume_rec = plume_phase()
 
     kernels = [{
         "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
@@ -2283,7 +2391,7 @@ def main() -> int:
         "bound_ms": max(s_ops_ms, s_bytes_ms),
         "bound_by": "operations" if s_ops_ms >= s_bytes_ms else "bytes",
         "library_ms": None,
-    }]
+    }, plume_rec]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"lax": lax}), flush=True)
     print(json.dumps({"surrogate": surrogate}), flush=True)

@@ -2,11 +2,12 @@
 kernel (``csrc/kstep.cu``) and the one-step kernel (``csrc/step.cu``), which share
 their physics (``csrc/physics.cuh``).
 
-Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, under ``build/torch_kernels/`` at the root of
-the checkout, keyed by a hash of the sources and the flags; the two builds run
-in parallel. They include no PyTorch header, so a build takes seconds, not
-minutes. Pointers come from ``tensor.data_ptr()`` and the stream from
+Each source is built by ``kernel_build``, which compiles it at first use
+with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+under ``build/torch_kernels/`` at the root of the checkout, keyed by a hash of
+the sources and the flags; the builds run in parallel. They include no PyTorch
+header, so a build takes seconds, not minutes. Pointers come from
+``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``; each launch returns the CUDA error
 code, and the wrapper raises if it is not 0. There is no fallback: on a CUDA
 tensor the wrapper launches the kernel or raises.
@@ -20,19 +21,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from hallthrusterpem_tpu_torch import cuda_graph
+from hallthrusterpem_tpu_torch import cuda_graph, kernel_build
 from hallthrusterpem_tpu_torch.constants import ELECTRON_MASS, FUNDAMENTAL_CHARGE
 from hallthrusterpem_tpu_torch.models.thruster.config import SolverConfig
 from hallthrusterpem_tpu_torch.models.thruster.fused_step import (
@@ -48,18 +43,14 @@ from hallthrusterpem_tpu_torch.models.thruster.rates import K_EN
 _E = FUNDAMENTAL_CHARGE
 _ME = ELECTRON_MASS
 CSRC = Path(__file__).parent / "csrc"
-#: kernel name -> source; each builds into a library of its own
-SOURCES = {"kstep": CSRC / "kstep.cu", "step": CSRC / "step.cu"}
-HEADER = CSRC / "physics.cuh"
-#: precise math and no FMA contraction: the kernel rounds as the plain version does
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+#: kernel name -> source; each builds into a library of its own (``kernel_build.SOURCES``)
+SOURCES = {name: kernel_build.SOURCES[name][0] for name in ("kstep", "step")}
 
 #: launches of each kernel since the last reset (counted where the kernel is
 #: launched, and for a launch captured in a CUDA graph at each replay)
 launch_counts = {"kstep": 0, "step": 0}
-#: per kernel, what its build did: seconds, whether it was cached, nvcc's -Xptxas -v lines
-build_info: dict = {}
+#: per library, what its build did (``kernel_build.build_info``)
+build_info = kernel_build.build_info
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -156,64 +147,13 @@ def rate_coefficients(cfg: SolverConfig) -> np.ndarray:
     return np.concatenate(parts).astype(np.float32)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the solver kernels")
-
-
-def build_dir() -> Path:
-    """``build/torch_kernels`` at the root of the checkout."""
-    return Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-
-
-def _build_all() -> dict:
-    """Path of each kernel's library, building the missing ones with one nvcc
-    process per source, all started together."""
-    out_dir = build_dir()
-    header = HEADER.read_bytes()
-    paths, procs, nvcc = {}, {}, None
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        for name, src in SOURCES.items():
-            key = hashlib.sha256(src.read_bytes() + header + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-            lib_path = paths[name] = out_dir / f"{name}_{key}.so"
-            log_path = lib_path.with_suffix(".log")
-            if lib_path.exists():
-                build_info[name] = dict(seconds=0.0, cached=True, path=str(lib_path),
-                                        log=log_path.read_text() if log_path.exists() else "")
-                continue
-            tmp_lib = Path(tmp) / lib_path.name
-            nvcc = nvcc or _nvcc()
-            procs[name] = (time.perf_counter(), tmp_lib, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp_lib), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        failed = []
-        for name, (t0, tmp_lib, proc) in procs.items():
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed to build {SOURCES[name].name}:\n{log}")
-                continue
-            paths[name].with_suffix(".log").write_text(log)
-            os.replace(tmp_lib, paths[name])  # atomic: a concurrent build never sees a partial file
-            build_info[name] = dict(seconds=time.perf_counter() - t0, cached=False,
-                                    path=str(paths[name]), log=log)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    return paths
-
-
 def load_libraries() -> dict:
-    """Build (once per source hash) and load both kernel libraries."""
+    """Build (once per source hash), load and bind both kernel libraries."""
     with _lock:
         if not _libs:
             loaded = {}
-            for name, path in _build_all().items():
-                lib = ctypes.CDLL(str(path))
+            for name in SOURCES:
+                lib = kernel_build.library(name)
                 size_fn = getattr(lib, f"{name}_params_size")
                 size_fn.restype = ctypes.c_int
                 if size_fn() != ctypes.sizeof(KParams):

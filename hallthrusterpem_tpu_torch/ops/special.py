@@ -27,6 +27,8 @@ def _weideman_coefficients(N: int) -> tuple[float, np.ndarray]:
 
 _L, _A = _weideman_coefficients(_N)
 _INV_SQRT_PI = float(1.0 / np.sqrt(np.pi))
+_SQRT_PI_2 = float(np.sqrt(np.pi) / 2.0)
+_TWO_SQRT_PI = float(2.0 / np.sqrt(np.pi))
 
 
 def wofz_parts(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -64,17 +66,17 @@ def dawson(x: torch.Tensor) -> torch.Tensor:
     """Dawson integral ``F(x) = exp(-x^2) int_0^x exp(t^2) dt`` for real ``x``."""
     ax = torch.abs(x)
     _, wi = wofz_parts(ax, torch.zeros_like(ax))
-    return torch.sign(x) * float(np.sqrt(np.pi) / 2.0) * wi
+    return torch.sign(x) * _SQRT_PI_2 * wi
 
 
 def erfi(x: torch.Tensor) -> torch.Tensor:
     """Imaginary error function of a real argument."""
-    return torch.exp(x**2) * float(2.0 / np.sqrt(np.pi)) * dawson(x)
+    return torch.exp(x**2) * _TWO_SQRT_PI * dawson(x)
 
 
 def exp_neg_sq_erfi(a: torch.Tensor) -> torch.Tensor:
     """``exp(-a^2) * erfi(a)`` for real ``a``, overflow-free."""
-    return float(2.0 / np.sqrt(np.pi)) * dawson(a)
+    return _TWO_SQRT_PI * dawson(a)
 
 
 def exp_neg_asq_re_erfi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 first use, then smoke-run the coupled PEM at each fidelity (the JAX package's
 ``scripts/install_solver.py``, which warms XLA's compilation cache instead).
 
-The kernels (``models/thruster/csrc``) are built with ``nvcc`` for ``sm_90a``
+The kernels (``models/thruster/csrc`` and the plume's ``models/csrc/plume.cu``)
+are built with ``nvcc`` for ``sm_90a``
 into ``build/torch_kernels/`` at the root of the checkout, one process per
 source, all started together; a build that fails raises (there is no fallback).
 Each library's path and build seconds are printed, then the launches and the
@@ -35,6 +36,7 @@ def main(argv=None):
     """Returns ``{"build": {kernel: {path, seconds, cached}}, "fidelities":
     [{fidelity, cells, ncharge, wall_s, kstep_launches, finite}]}``."""
     args = parser.parse_args(argv)
+    from hallthrusterpem_tpu_torch import kernel_build
     from hallthrusterpem_tpu_torch.models.thruster import _kernels
     from hallthrusterpem_tpu_torch.pem import CoupledPEM, default_coupled_inputs
     from hallthrusterpem_tpu_torch.utils import resolve_device
@@ -42,8 +44,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     rec = {"build": {}, "fidelities": []}
     if device.type == "cuda":
-        _kernels._build_all()
-        for name, info in _kernels.build_info.items():
+        kernel_build.build_all()
+        for name, info in kernel_build.build_info.items():
             rec["build"][name] = {k: info[k] for k in ("path", "seconds", "cached")}
             print(f"{name}: {info['path']} built in {info['seconds']:.1f}s"
                   + (" (already built)" if info["cached"] else ""))

@@ -18,7 +18,10 @@ profiler runs, through :func:`count`:
   ``fused_step.kstep``, entry to return, and the calls so timed (a call made
   while its thread captures a CUDA graph is not timed);
 - ``rows_attempted``, ``rows_masked``: the rows ``hallthruster_jl`` was given
-  and those its guards masked as non-physical.
+  and those its guards masked as non-physical;
+- ``plume_kernel_rows``, ``plume_eager_rows``: the rows ``models.plume.current_density``
+  computed by its CUDA kernel (inputs on a card) and by its eager plain
+  version (inputs on the CPU).
 
 A span's counter change includes what other host threads added meanwhile.
 """
@@ -37,7 +40,8 @@ __all__ = ["span", "spans", "counts", "count", "reset_counts"]
 
 _OFF = contextlib.nullcontext()
 _lock = threading.Lock()
-counts = {"kstep_host_ns": 0, "kstep_blocks": 0, "rows_attempted": 0, "rows_masked": 0}
+counts = {"kstep_host_ns": 0, "kstep_blocks": 0, "rows_attempted": 0, "rows_masked": 0,
+          "plume_kernel_rows": 0, "plume_eager_rows": 0}
 #: (name, start_ns, end_ns, {counter: change}) of the latest spans closed while a profiler ran
 spans = collections.deque(maxlen=1 << 16)
 

@@ -1,5 +1,5 @@
-// CPU stand-in for the parts of the CUDA runtime that csrc/kstep.cu and
-// csrc/step.cu use, so that their kernels can be compiled with g++ and run on
+// CPU stand-in for the parts of the CUDA runtime that csrc/kstep.cu,
+// csrc/step.cu and the plume's models/csrc/plume.cu use, so that their kernels can be compiled with g++ and run on
 // the CPU in tests: one std::thread per CUDA thread, thread blocks one after
 // another, __syncthreads() as a barrier of the block, warp shuffles through a
 // per-warp exchange buffer between two barriers of the warp's 32 threads, and
@@ -9,6 +9,7 @@
 #include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -24,11 +25,12 @@ inline dim3 blockDim;
 inline std::barrier<>* emu_barrier = nullptr;
 inline std::atomic<int> emu_or{0};
 
-// one warp's shuffle exchange: each lane posts its value, the warp meets, each
-// lane reads its partner's, the warp meets again before the buffer is reused
+// one warp's shuffle exchange: each lane posts its value's bytes, the warp
+// meets, each lane reads its partner's, the warp meets again before the buffer
+// is reused
 struct EmuWarp {
   std::barrier<> bar{32};
-  float val[32];
+  alignas(8) unsigned char val[32][8];
 };
 inline std::vector<std::unique_ptr<EmuWarp>> emu_warps;
 
@@ -68,15 +70,27 @@ inline int __syncthreads_or(int pred) {
   return r;
 }
 
-// every lane of the warp must call it, as on the card with a full mask
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+// every lane of the warp must call them, as on the card with a full mask
+template <class T>
+inline T emu_shuffle(T v, unsigned src) {
+  static_assert(sizeof(T) <= 8);
   EmuWarp& w = *emu_warps[threadIdx.x / 32];
-  const unsigned lane = threadIdx.x % 32;
-  w.val[lane] = v;
+  std::memcpy(w.val[threadIdx.x % 32], &v, sizeof(T));
   w.bar.arrive_and_wait();
-  const float r = w.val[lane ^ lane_mask];
+  T r;
+  std::memcpy(&r, w.val[src % 32], sizeof(T));
   w.bar.arrive_and_wait();
   return r;
+}
+
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return emu_shuffle(v, (threadIdx.x % 32) ^ lane_mask);
+}
+
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  return emu_shuffle(v, src_lane);
 }
 
 template <class F>

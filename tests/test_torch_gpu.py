@@ -1,5 +1,5 @@
-"""The K-step and one-step CUDA kernels on the card against their plain PyTorch
-versions; the lax solver on the card against the host CPU, and its replayed
+"""The K-step and one-step CUDA kernels and the plume's kernel on the card
+against their plain PyTorch versions; the lax solver on the card against the host CPU, and its replayed
 CUDA graphs against its eager route bit for bit; the System path; the
 surrogates' products (the MLP ensemble's forward, the tensor interpolant) on the
 card against the host CPU.
@@ -15,6 +15,8 @@ import dataclasses
 import pytest
 import torch
 
+from hallthrusterpem_tpu_torch import tracing
+from hallthrusterpem_tpu_torch.models import plume
 from hallthrusterpem_tpu_torch.models.thruster import _kernels
 from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
 from hallthrusterpem_tpu_torch.models.thruster.one_step import simulate_batch_step
@@ -236,6 +238,66 @@ def test_system_predict_launches_kstep():
     out = system.predict(samples, use_model="best")
     assert _kernels.launch_counts["kstep"] > before
     assert out["T"].device.type == "cuda" and out["j_ion"].shape == (16, 91)
+
+
+@pytest.mark.parametrize("case", ["float32", "float64", "mixed"])
+@pytest.mark.parametrize("rows", [23, 1024, 1472])
+def test_plume_kernel_matches_plain_on_card(case, rows):
+    """``current_density`` on the card, with ``T`` and the special rows (the
+    Thruster's masked rows among them), is one launch of the plume's kernel,
+    within the emulated test's tolerances of the eager plain version on the same
+    card tensors, ``T_c`` of its type, every row counted as the kernel's. In
+    ``mixed``, I_B0 and T are float64 beside float32 inputs, as the Thruster
+    gives them once a row is masked."""
+    from test_torch_plume_emulated import _assert_close, _rows
+
+    _need_card()
+    x = _rows(rows, torch.float64 if case == "float64" else torch.float32, seed=rows)
+    if case == "mixed":
+        x.update({k: x[k].double() for k in ("I_B0", "T")})
+    x = {k: v.cuda() for k, v in x.items()}
+    plume.current_density(x)  # the build, the grid on this card
+    before, eager_before = plume.launch_counts["plume"], tracing.counts["plume_eager_rows"]
+    kernel_before = tracing.counts["plume_kernel_rows"]
+    got = plume.current_density(x)
+    assert plume.launch_counts["plume"] == before + 1
+    assert tracing.counts["plume_kernel_rows"] == kernel_before + rows
+    assert tracing.counts["plume_eager_rows"] == eager_before
+    ref = plume.current_density_plain(x)
+    torch.cuda.synchronize()
+    assert got["j_ion"].device.type == "cuda" and got["j_ion_coords"].shape == (rows, 91)
+    assert got["T_c"].dtype == ref["T_c"].dtype == (torch.float32 if case == "float32" else torch.float64)
+    _assert_close({k: v.cpu() for k, v in got.items()}, {k: v.cpu() for k, v in ref.items()})
+
+
+def test_plume_on_card_launches_nothing_else():
+    """A ``System.predict`` call on the card under ``torch.profiler``: inside
+    ``htpem.call_model.Plume`` no operator but allocations and views, and the
+    plume's kernel on the card's timeline once; every row through the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+
+    _need_card()
+    system = load_system("pem_v0_SPT-100.json", device="cuda")
+    comp = system["Thruster"]
+    comp.model_kwargs["simulation"] = dict(comp.model_kwargs["simulation"], duration=2e-6)
+    samples = system.sample_inputs(23, generator=torch.Generator().manual_seed(5))
+    system.predict(samples, use_model="best")
+    tracing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        system.predict(samples, use_model="best")
+    assert tracing.counts["plume_kernel_rows"] == 23 and tracing.counts["plume_eager_rows"] == 0
+    events = prof.profiler.kineto_results.events()
+    host = [(e.name(), e.start_ns(), e.end_ns()) for e in events if e.device_type().name == "CPU"]
+    (a, b), = [(s, t) for n, s, t in host if n == "htpem.call_model.Plume"]
+    inside = {n for n, s, t in host if n.startswith("aten::") and a <= s and t <= b}
+    allowed = {"aten::empty", "aten::empty_strided", "aten::to", "aten::expand", "aten::broadcast_to",
+               "aten::reshape", "aten::view", "aten::_reshape_alias", "aten::as_strided", "aten::select",
+               "aten::alias", "aten::detach", "aten::lift_fresh"}
+    assert inside <= allowed, inside - allowed
+    on_card = [e.name() for e in events if e.device_type().name != "CPU" and "plume_kernel" in e.name()]
+    assert len(on_card) == 1, on_card
 
 
 def test_system_predict_blocks_the_host_inside_its_wait_spans():
