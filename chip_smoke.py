@@ -148,13 +148,22 @@ Phases, each printed with its seconds:
     version's type and within ``PLUME_TOL`` (scaled; the divergence angle in
     float32 within ``PLUME_DIV_TOL_F32``), one launch a call; its time on the
     card a launch (back to back), its host time a call, its bound, and the plain
-    version's wall a call and operators a call.
+    version's wall a call and operators a call;
+23. the pem_v0 H9-class system (GaussianBohm transport under a
+    SimpleLogisticShift pressure response; no ion wall losses, plume expansion
+    or circuit): ``System.predict(use_model="best")`` on the benchmark's frozen
+    ``H9_CONFIG`` (fidelity (2,2), 5e-5 s) at one call of its facility sweep
+    (``H9_MIX``, 1,024 rows at four chamber pressures): ``kstep<3,1>`` with
+    those flags, ``ceil(steps / K)`` launches, its first launch against the
+    plain version from the same carry (within ``STATE_RTOL``), the finite share
+    of the rows at each pressure, and the counters ``gaussian_bohm_rows`` and
+    ``plume_kernel_rows`` equal to ``rows_attempted``; a second call timed.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
 line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"studies": {...}}``
 line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), a ``{"bench": {...}}``
-line (phase 21), a ``{"kernels": [...]}``
+line (phase 21), a ``{"h9": {...}}`` line (phase 23), a ``{"kernels": [...]}``
 line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``, ``plume``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -295,6 +304,10 @@ PLUME_ROWS = (23, 1024, 1472)  # a call of a22_mcmc_eval, a00_labelling, a22_pre
 PLUME_TOL = 1e-6
 PLUME_DIV_TOL_F32 = 5e-6  # the sum order alone moves arccos by up to 2.1e-6 (tests/test_torch_plume_emulated.py)
 PLUME_REPS = 200
+# phase 23: the H9-class system at one call of the benchmark's h9_facility_sweep cell
+H9_CONFIG = "pembench/configs/h9_pem_v0_a22.json"
+H9_MIX = "h9_pressure_sweep"
+H9_SEED = 23
 
 
 def log(msg: str) -> None:
@@ -1962,6 +1975,74 @@ def plume_phase() -> dict:
     return rec
 
 
+def h9_phase() -> dict:
+    """Phase 23: the H9-class system through ``System.predict`` at one call of
+    the benchmark's facility sweep (see the module's note)."""
+    import numpy as np
+    import torch
+
+    from hallthrusterpem_tpu_torch import tracing
+    from hallthrusterpem_tpu_torch.core.json_loader import load_system
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from pembench.traffic import Traffic, load_mix
+
+    t0 = time.perf_counter()
+    dev, path = torch.device("cuda"), Path(__file__).resolve().parent / H9_CONFIG
+    doc = json.loads(path.read_text())
+    system = load_system(path, device=dev)
+    rows = Traffic(doc, load_mix(H9_MIX), H9_SEED).call(0)
+    first, launch = {}, fs.kstep
+
+    def watched(state, prof, sacc, consts, i0, K, cfg, physics=None):
+        """The kernel; its first launch also against the plain version from the same carry."""
+        if first:
+            return launch(state, prof, sacc, consts, i0, K, cfg, physics)
+        carry = tuple(x.clone() for x in (state, prof, sacc))
+        launch(state, prof, sacc, consts, i0, K, cfg, physics)
+        fs.kstep_plain(*carry, consts, i0, K, cfg, fs.Physics(cfg))
+        first.update(cfg=cfg, K=K, flags=_kernels.kernel_params(cfg), errs=carry_errs(fs, (state, prof, sacc), carry),
+                     circuit=float(consts["scalars"][:, [fs.P_RC, fs.P_LDT]].abs().max()))
+
+    _kernels.reset_counts()
+    before = dict(tracing.counts)
+    fs.kstep = watched
+    try:
+        out = system.predict(rows, use_model=doc["use_model"])
+        torch.cuda.synchronize()
+    finally:
+        fs.kstep = launch
+    change = {k: tracing.counts[k] - before[k] for k in tracing.counts}
+    cfg, flags, (err, abs_err, n_arrays) = first["cfg"], first["flags"], first["errs"]
+    launches, expected = _kernels.launch_counts["kstep"], math.ceil(cfg.num_steps / first["K"])
+    kname = f"kstep<{cfg.ncharge},{cfg.neutral_groups}>"
+    branch = {"ion_wall": flags.ion_wall, "solve_plume": flags.solve_plume, "div_corr": flags.div_corr,
+              "trace": flags.trace, "circuit_max": first["circuit"]}
+    assert kname == "kstep<3,1>" and cfg.num_cells == 200 and cfg.anom_model == "GaussianBohm", (kname, cfg)
+    assert cfg.pressure_shift == "SimpleLogisticShift", cfg.pressure_shift
+    assert branch == {"ion_wall": 0, "solve_plume": 0, "div_corr": 0, "trace": 1, "circuit_max": 0.0}, branch
+    assert launches == expected, (launches, expected)
+    assert err < STATE_RTOL, err
+    n = len(rows["P_b"])
+    assert change["gaussian_bohm_rows"] == change["plume_kernel_rows"] == change["rows_attempted"] == n, change
+    finite = torch.isfinite(out["T"]).cpu().numpy()
+    by_pressure = {f"{p:g}": float(finite[rows["P_b"] == p].mean()) for p in np.unique(rows["P_b"])}
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    system.predict(rows, use_model=doc["use_model"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = int(torch.cuda.max_memory_allocated())
+    log(f"[23 H9] {H9_CONFIG}, {n} rows ({H9_MIX}, seed {H9_SEED}): {kname}, {cfg.num_cells} cells, dt "
+        f"{cfg.dt:.4e} s, {cfg.num_steps} steps, {launches} launches (expected {expected}); flags {branch}; first "
+        f"launch vs {first['K']} plain steps: max scaled error {err:.3e} (tolerance {STATE_RTOL:g}), max absolute "
+        f"{abs_err:.3e} over {n_arrays} arrays; finite share by P_b {by_pressure}; counters {change}; a second call "
+        f"{wall:.3f} s, peak {peak / 1e6:.1f} MB ({time.perf_counter() - t0:.2f} s)")
+    return {"rows": n, "kernel": kname, "dt": cfg.dt, "steps": cfg.num_steps, "launches": launches,
+            "flags": branch, "first_launch_max_scaled_err": err, "first_launch_max_abs_err": abs_err,
+            "finite_share_by_P_b": by_pressure, "counters": change, "wall_s": wall, "peak_bytes": peak}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -2360,6 +2441,8 @@ def main() -> int:
     bench = bench_phase(kstep_ms)
     # ---- 22. the plume's kernel
     plume_rec = plume_phase()
+    # ---- 23. the H9-class system
+    h9 = h9_phase()
 
     kernels = [{
         "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
@@ -2401,6 +2484,7 @@ def main() -> int:
     print(json.dumps({"studies": studies}), flush=True)
     print(json.dumps({"parity_sweep": parity_sweep}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
+    print(json.dumps({"h9": h9}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

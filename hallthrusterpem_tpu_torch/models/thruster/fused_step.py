@@ -721,7 +721,8 @@ def init_carry(params: dict, base_B, cfg: SolverConfig):
     check_supported(cfg)
     B = params["V_d"].shape[0]
     dev = params["V_d"].device
-    consts = pack_consts(params, base_B, cfg)
+    with span("thruster.consts"):
+        consts = pack_consts(params, base_B, cfg)
     state = initial_state(params, cfg)
     prof = torch.zeros((cfg.ncharge + 4, B, lanes_for(cfg)), dtype=torch.float32, device=dev)
     sacc = torch.zeros((B, N_SLOTS), dtype=torch.float32, device=dev)

@@ -42,6 +42,7 @@ from hallthrusterpem_tpu_torch.models.thruster.rates import (
     lookup_rate,
 )
 from hallthrusterpem_tpu_torch.ops.tridiag import tridiag_solve
+from hallthrusterpem_tpu_torch.tracing import count
 
 _E = FUNDAMENTAL_CHARGE
 _ME = ELECTRON_MASS
@@ -84,12 +85,14 @@ def wall_energy_loss_rate(Te, ne, in_channel, c_w, cfg: SolverConfig, lnTe=None,
 def anomalous_profile(p: dict, z: torch.Tensor, cfg: SolverConfig) -> torch.Tensor:
     """Dimensionless anomalous collision coefficient alpha(z), (batch, NC) for
     (batch,) parameters and the (NC,) cell centres: TwoZoneBohm (with the
-    transport-barrier well and near-anode plateau) or GaussianBohm."""
+    transport-barrier well and near-anode plateau) or GaussianBohm. Adds the
+    batch to the counter ``gaussian_bohm_rows`` for a GaussianBohm profile."""
     col = lambda k: p[k][:, None]
     z_ch = cfg.geometry.channel_length
     shift = _pressure_shift_m(p, cfg, z_ch)
     shift = shift[:, None] if isinstance(shift, torch.Tensor) else shift
     if cfg.anom_model == "GaussianBohm":
+        count(gaussian_bohm_rows=p["center"].shape[0])
         zc = col("center") + shift
         return col("hall_max") + (col("hall_min") - col("hall_max")) * torch.exp(
             -0.5 * ((z - zc) / torch.clamp(col("width"), min=1e-4)) ** 2)

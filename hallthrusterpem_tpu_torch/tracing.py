@@ -21,7 +21,18 @@ profiler runs, through :func:`count`:
   and those its guards masked as non-physical;
 - ``plume_kernel_rows``, ``plume_eager_rows``: the rows ``models.plume.current_density``
   computed by its CUDA kernel (inputs on a card) and by its eager plain
-  version (inputs on the CPU).
+  version (inputs on the CPU);
+- ``gaussian_bohm_rows``: the rows of each GaussianBohm anomalous-transport
+  profile ``solver.anomalous_profile`` builds (once a call on the K-step route,
+  in ``fused_step.pack_consts``; on the lax route once for the initial state,
+  once a segment and once for the time averages); 0 for a TwoZoneBohm
+  configuration.
+
+Spans of the Thruster's solve on the K-step route (``fused_step``):
+``htpem.thruster.init`` (the initial carry), inside it ``htpem.thruster.consts``
+(``pack_consts``: the anomalous-transport profile with its pressure shift, the
+field and the per-row scalar block), then ``htpem.thruster.launches`` and
+``htpem.thruster.average``.
 
 A span's counter change includes what other host threads added meanwhile.
 """
@@ -41,7 +52,7 @@ __all__ = ["span", "spans", "counts", "count", "reset_counts"]
 _OFF = contextlib.nullcontext()
 _lock = threading.Lock()
 counts = {"kstep_host_ns": 0, "kstep_blocks": 0, "rows_attempted": 0, "rows_masked": 0,
-          "plume_kernel_rows": 0, "plume_eager_rows": 0}
+          "plume_kernel_rows": 0, "plume_eager_rows": 0, "gaussian_bohm_rows": 0}
 #: (name, start_ns, end_ns, {counter: change}) of the latest spans closed while a profiler ran
 spans = collections.deque(maxlen=1 << 16)
 

@@ -29,10 +29,11 @@ CONFIG = "pem_v0_SPT-100.json"
 #: how often each opens in a call: the input and output trees are made partly in
 #: hallthruster_jl and partly in run_simulation, which is an entry of its own
 ONCE = ("predict", "call_model.Cathode", "call_model.Thruster", "call_model.Plume", "thruster.solve",
-        "thruster.init", "thruster.launches", "thruster.average", "thruster.guards")
+        "thruster.init", "thruster.consts", "thruster.launches", "thruster.average", "thruster.guards")
 TWICE = ("thruster.input", "thruster.output")
 #: (inner, outer): each span of the first name lies inside one of the second
 NESTED = [("thruster.launches", "thruster.solve"), ("thruster.init", "thruster.solve"),
+          ("thruster.consts", "thruster.init"),
           ("thruster.average", "thruster.solve"), ("thruster.solve", "call_model.Thruster"),
           ("thruster.input", "call_model.Thruster"), ("thruster.output", "call_model.Thruster"),
           ("thruster.guards", "call_model.Thruster"), ("wait.guards", "thruster.guards"),
