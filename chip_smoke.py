@@ -13,7 +13,7 @@ Phases, each printed with its seconds:
    at the main path's config, and from its SASS (``cuobjdump``) the block
    barriers and instructions of one step and the instruction count by opcode;
 3. kernel against its plain PyTorch version on the card at the main path's
-   shapes (fidelity (2,2): 202 cells, 256 lanes, 3 charge states, plume on;
+   shapes (fidelity (2,2): 202 cells, 224 lanes, 3 charge states, plume on;
    B = 1024): one K = 50 launch against 50 plain steps from the same state, every
    state array, profile sum and accumulator slot; then 20 launches against 1,000
    plain steps, the accumulators;
@@ -157,13 +157,19 @@ Phases, each printed with its seconds:
     those flags, ``ceil(steps / K)`` launches, its first launch against the
     plain version from the same carry (within ``STATE_RTOL``), the finite share
     of the rows at each pressure, and the counters ``gaussian_bohm_rows`` and
-    ``plume_kernel_rows`` equal to ``rows_attempted``; a second call timed.
+    ``plume_kernel_rows`` equal to ``rows_attempted``; a second call timed;
+24. the K-step kernel's lane width: ``kstep<3,1>`` at fidelity (2,2) on its
+    224 lanes against the same launches forced onto 256, bit for bit on lanes
+    0..NC-1 and the accumulators, timed at each batch of ``WIDTH_BATCHES``;
+    registers, spill bytes, barriers and static instructions a warp-step of
+    each instance (and of ``kstep<1,1>`` at 128 lanes); and a probe of where
+    the warps of four co-resident 224-thread blocks sit on an SM's schedulers.
 
 It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
 line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"studies": {...}}``
 line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), a ``{"bench": {...}}``
-line (phase 21), a ``{"h9": {...}}`` line (phase 23), a ``{"kernels": [...]}``
+line (phase 21), a ``{"h9": {...}}`` line (phase 23), a ``{"widths": {...}}`` line (phase 24), a ``{"kernels": [...]}``
 line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``, ``plume``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
 a CUDA device it exits non-zero before printing any result.
 """
@@ -308,6 +314,44 @@ PLUME_REPS = 200
 H9_CONFIG = "pembench/configs/h9_pem_v0_a22.json"
 H9_MIX = "h9_pressure_sweep"
 H9_SEED = 23
+# phase 24: the K-step kernel's lane width
+WIDTH_BATCHES = {1024: 20, 23: 50, 1: 50}  # batch -> timed launches (a22_predictive's, a22_mcmc_eval's, one row)
+WIDTH_ORDER = (224, 256, 256, 224)  # each width timed twice, in this order, from the same carry
+PROBE_SPIN_CYCLES = 2_000_000  # ~1 ms: every probe block of the one wave resident at once
+# the probe of phase 24: each warp of one wave of 224-thread blocks, four to an
+# SM (held there by 56 KB of shared memory a block), records its SM, its
+# hardware slot (%warpid) and its block, then spins so that the SM's blocks
+# overlap; a slot's scheduler is taken as the slot mod 4
+PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(224, 4) probe_kernel(int* out, long long spin) {
+  extern __shared__ float pad[];
+  unsigned sm, slot;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  asm volatile("mov.u32 %0, %%warpid;" : "=r"(slot));
+  const long long t0 = clock64();
+  while (clock64() - t0 < spin) pad[threadIdx.x] = (float)t0;
+  if ((threadIdx.x & 31) == 0) {
+    int* o = out + 3 * (blockIdx.x * 7 + threadIdx.x / 32);
+    o[0] = (int)sm;
+    o[1] = (int)slot;
+    o[2] = blockIdx.x;
+  }
+}
+extern "C" int probe_run(int* host, int blocks, long long spin) {
+  const int smem = 56 * 1024;
+  int* dev = nullptr;
+  cudaError_t err = cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaMalloc(&dev, sizeof(int) * 3 * 7 * blocks);
+  if (err == cudaSuccess) {
+    probe_kernel<<<blocks, 224, smem>>>(dev, spin);
+    err = cudaDeviceSynchronize();
+  }
+  if (err == cudaSuccess) err = cudaMemcpy(host, dev, sizeof(int) * 3 * 7 * blocks, cudaMemcpyDeviceToHost);
+  cudaFree(dev);
+  return (int)err;
+}
+"""
 
 
 def log(msg: str) -> None:
@@ -412,6 +456,28 @@ def step_loop_counts(sass: list, n_levels: int) -> tuple:
         raise RuntimeError(f"step loop {step} holds loops {inner}, not the PCR's alone")
     body, pcr = inside(step), inside(inner[0])
     return (bars(body) + (n_levels - 1) * bars(pcr), len(body) + (n_levels - 1) * len(pcr))
+
+
+def ptxas_usage(log_text: str, mangled: str) -> dict:
+    """Registers and spill bytes that ptxas gave the kernel whose mangled name
+    starts with ``mangled``, from a build's ``-Xptxas -v`` log."""
+    for block in re.split(r"Compiling entry function '", log_text)[1:]:
+        if block.startswith(mangled):
+            regs = re.search(r"Used (\d+) registers", block)
+            stores = re.search(r"(\d+) bytes spill stores", block)
+            loads = re.search(r"(\d+) bytes spill loads", block)
+            return {"registers": int(regs.group(1)) if regs else None,
+                    "spill_stores": int(stores.group(1)) if stores else None,
+                    "spill_loads": int(loads.group(1)) if loads else None}
+    raise RuntimeError(f"no ptxas lines for {mangled}")
+
+
+def kstep_mangled(ncharge: int, groups: int, lanes: int) -> str:
+    """The start of the mangled name of the K-step instance that a launch of
+    ``lanes`` threads runs: bounded at 256 threads for 128 and 256 lanes and
+    for two neutral groups, else at 224 (``KSTEP_TABLE`` in csrc/kstep.cu)."""
+    bound = 256 if lanes in (128, 256) or groups == 2 else 224
+    return f"_Z12kstep_kernelILi{ncharge}ELi{groups}ELi{bound}E"
 
 
 def sm_clock_under_load(launch, n_launch: int) -> list:
@@ -2043,6 +2109,92 @@ def h9_phase() -> dict:
             "finite_share_by_P_b": by_pressure, "counters": change, "wall_s": wall, "peak_bytes": peak}
 
 
+def width_phase() -> dict:
+    """Phase 24: ``kstep<3,1>`` at fidelity (2,2) on its 224 lanes (the instance
+    bounded at 224 threads) against the same launches forced onto 256 lanes
+    (the instance bounded at 256, which every width ran before the layout was
+    sized to the warp): the outputs on lanes 0..NC-1 and every accumulator
+    bit for bit after one launch; ms a K = 50 launch at each batch of
+    ``WIDTH_BATCHES``, back to back after the one spin, each width timed twice
+    (``WIDTH_ORDER``) from the same carry; each instance's registers and spill
+    bytes (ptxas) and its barriers and static instructions a warp-step (SASS),
+    ``kstep<1,1>``'s at 128 lanes beside them; then where the warps of four
+    co-resident 224-thread blocks sit on an SM's four schedulers."""
+    import ctypes
+
+    import torch
+
+    from hallthrusterpem_tpu_torch import kernel_build
+    from hallthrusterpem_tpu_torch.models.thruster import _kernels
+    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
+    from hallthrusterpem_tpu_torch.pem import CoupledPEM, _coupled_pre, default_coupled_inputs
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    kernel_build.build_all()
+    _kernels.load_libraries()
+    info = _kernels.build_info["kstep"]
+    pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-5, device=dev)
+    low = CoupledPEM(thruster="SPT-100", model_fidelity=(0, 0), duration=2e-5, device=dev)
+    cfg, K, narrow = pem.cfg, fs.INNER_STEPS, fs.lanes_for(pem.cfg)
+    assert (cfg.ncharge, cfg.neutral_groups, narrow, fs.lanes_for(low.cfg)) == (3, 1, 224, 128)
+    code = {}
+    for label, c, lanes in (("kstep<3,1> on 224", cfg, 224), ("kstep<3,1> on 256", cfg, 256),
+                            ("kstep<1,1> on 128", low.cfg, 128)):
+        mangled = kstep_mangled(c.ncharge, c.neutral_groups, lanes)
+        sass = kernel_sass(info["path"], mangled)
+        barriers, insns = step_loop_counts(sass, _kernels.kernel_params(c).n_levels)
+        code[label] = dict(ptxas_usage(info["log"], mangled), barriers_per_step=barriers,
+                           instructions_per_warp_step=insns, sass_instructions=len(sass))
+        log(f"[24 width] {label}: {code[label]}")
+
+    widen = lambda x, lanes: torch.nn.functional.pad(x, (0, lanes - x.shape[-1])).contiguous()
+    ms, equal = {}, {}
+    for batch, reps in WIDTH_BATCHES.items():
+        x = default_coupled_inputs(batch, torch.Generator().manual_seed(24), spread=0.08, device=dev)
+        params, _ = _coupled_pre(x, cfg)
+        consts, state, prof, sacc = fs.init_carry(params, pem.base_B, cfg)
+        after = {}
+        for lanes in WIDTH_ORDER:
+            c = dict(consts, nu_anom=widen(consts["nu_anom"], lanes), omega_ce=widen(consts["omega_ce"], lanes))
+            carry = [widen(state, lanes), widen(prof, lanes), sacc.clone()]
+            launch = lambda: _kernels.kstep_cuda(*carry, c, 0, K, cfg)
+            launch()
+            torch.cuda.synchronize()
+            after.setdefault(lanes, [t[..., :cfg.nc].clone() for t in carry[:2]] + [carry[2].clone()])
+            ms.setdefault(batch, {}).setdefault(lanes, []).append(cuda_ms(launch, reps, lead=True))
+        equal[batch] = all(torch.equal(a, b) for a, b in zip(after[224], after[256]))
+        t = {k: min(v) for k, v in ms[batch].items()}
+        log(f"[24 width] B={batch}, K={K}: {t[224]:.4f} ms a launch on 224 lanes, {t[256]:.4f} on 256 "
+            f"({t[224] / t[256] - 1:+.2%}; every timing {ms[batch]}); lanes 0..NC-1 and the accumulators "
+            f"after one launch equal bit for bit: {equal[batch]}")
+        assert equal[batch], batch
+        del params, consts, state, prof, sacc, carry, after
+
+    src = Path("build") / "probe" / "probe.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(PROBE_SOURCE)
+    lib_path = src.with_suffix(".so")
+    subprocess.run([shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", *kernel_build.NVCC_FLAGS,
+                    "-o", str(lib_path), str(src)], check=True, timeout=300, capture_output=True)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = 4 * n_sm
+    out = (ctypes.c_int * (3 * 7 * blocks))()
+    rc = ctypes.CDLL(str(lib_path)).probe_run(out, blocks, ctypes.c_longlong(PROBE_SPIN_CYCLES))
+    assert rc == 0, rc
+    per_sm = collections.defaultdict(list)
+    for w in range(7 * blocks):
+        per_sm[out[3 * w]].append(out[3 * w + 1])
+    splits = collections.Counter(
+        tuple(sorted(collections.Counter(slot % 4 for slot in slots).values(), reverse=True))
+        for slots in per_sm.values())
+    log(f"[24 width] probe: {blocks} blocks of 224 threads over {len(per_sm)} SMs, warps a scheduler (slot mod 4) "
+        f"on each SM -> SMs: {dict(splits)} ({time.perf_counter() - t0:.2f} s)")
+    return {"code": code, "ms": {str(b): {str(k): v for k, v in t.items()} for b, t in ms.items()},
+            "equal_bits": {str(b): v for b, v in equal.items()},
+            "scheduler_splits": {"/".join(map(str, k)): v for k, v in splits.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--duration", type=float, default=2e-5,
@@ -2094,7 +2246,7 @@ def main() -> int:
     blocks_per_sm = _kernels.kstep_blocks_per_sm(pem.cfg)
     kname = f"kstep<{pem.cfg.ncharge},{pem.cfg.neutral_groups}>"
     sass = kernel_sass(_kernels.build_info["kstep"]["path"],
-                       f"kstep_kernelILi{pem.cfg.ncharge}ELi{pem.cfg.neutral_groups}E")
+                       kstep_mangled(pem.cfg.ncharge, pem.cfg.neutral_groups, fs.lanes_for(pem.cfg)))
     n_levels = _kernels.kernel_params(pem.cfg).n_levels
     barriers, step_insns = step_loop_counts(sass, n_levels)
     opcodes = collections.Counter(op.split(".")[0] for _, op, _ in sass)
@@ -2443,6 +2595,8 @@ def main() -> int:
     plume_rec = plume_phase()
     # ---- 23. the H9-class system
     h9 = h9_phase()
+    # ---- 24. the K-step kernel's lane width
+    widths = width_phase()
 
     kernels = [{
         "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
@@ -2485,6 +2639,7 @@ def main() -> int:
     print(json.dumps({"parity_sweep": parity_sweep}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
     print(json.dumps({"h9": h9}), flush=True)
+    print(json.dumps({"widths": widths}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -208,11 +208,14 @@ def _constants(cfg: SolverConfig, dev: torch.device):
 
 def kstep_cuda(state, prof, sacc, consts: dict, i0: int, K: int, cfg: SolverConfig) -> None:
     """Launch the K-step kernel for steps ``i0 .. i0+K-1``, in place on ``state``,
-    ``prof`` and ``sacc``, on the current stream of their device."""
+    ``prof`` and ``sacc``, on the current stream of their device. The launch
+    takes the tensors' lane width: the layout's (``lanes_for``) on the main
+    path; any other multiple of 32 that holds two padding lanes gives the same
+    numbers on lanes 0..NC-1 (the kernel refuses the rest)."""
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"kstep_cuda: tensors must lie on a CUDA device, got {dev}")
-    Z, LN = cfg.ncharge, lanes_for(cfg)
+    Z, LN = cfg.ncharge, state.shape[-1]
     B = state.shape[1]
     _check("state", state, (n_state_for(cfg), B, LN), dev)
     _check("prof", prof, (Z + 4, B, LN), dev)

@@ -7,7 +7,9 @@
 // ../fused_step.py; the two share the packed tensor layout described there.
 //
 // Design. One thread block per sample, one thread per lane (cell, ghost cell or
-// padding lane; blockDim = LN = 128 or 256). Each thread keeps its lane's state,
+// padding lane; blockDim = LN, a multiple of 32: 128 lanes for NC <= 126, else
+// the least that holds NC + 2, so 224 at fidelity (2,2); physics.cuh says how
+// neighbour reads wrap). Each thread keeps its lane's state,
 // velocities and profile sums in registers across the K steps and writes them
 // back once per launch, so device memory is touched once per launch and not once
 // per step. The per-sample accumulators and the exit-plane scales live in
@@ -17,22 +19,25 @@
 // k's discharge current (the I_d(t) trace lanes; K <= 120).
 //
 // What bounds it on an H100. The operation bound of chip_smoke.py (0.206 ms
-// at fidelity (2,2), B = 1024, K = 50) counts an operation as half a fused
-// multiply-add at 67 TFLOP/s; the kernel takes 5.9x that. The working
-// hypothesis, not measured (no profiler has counted its issued instructions):
-// the issue rate of its instructions. The plain version's ~1.05e3 float32
-// operations per lane-step become 2,629 SASS instructions a warp issues per
+// at fidelity (2,2), B = 1024, K = 50, on 256 lanes) counts an operation as
+// half a fused multiply-add at 67 TFLOP/s; the kernel took 5.9x that. The
+// issue rate of its instructions: the plain version's ~1.05e3 float32
+// operations per lane-step become 2,586 SASS instructions a warp issues per
 // step of kstep<3,1> in chip_smoke.py's static count of the step loop (both
 // sides of each branch; precise divisions, expf/logf, NaN-propagating
 // min/max, shared loads of the rate coefficients). At the 1,980 MHz SM clock
-// read under load, the 64 warps of the busiest SM would issue them in 21.2 us
-// a step against the 24.4 us measured: 87% of the schedulers' cycles, if
-// every counted instruction ran. Per lane and launch it moves only 128 bytes. The design:
+// read under load, the 64 warps of a 256-lane layout's busiest SM would issue
+// 2,629 of them in 21.2 us a step against the 24.4 us measured; a warp fewer
+// a block (224 lanes) cut the time by 10.0%, as the count. Per lane and
+// launch it moves only 128 bytes. The design:
 // - few block barriers: 15 a step at fidelity (2,2), read from the SASS by
 //   chip_smoke.py (physics.cuh says where they are), 41 before;
-// - four blocks of 256 threads per SM (kMinBlocksPerSM in physics.cuh): 64
-//   registers, at the price of 84 B of spill stores in kstep<3,1>; 1024
-//   samples fill two waves of 528 blocks on 132 SMs;
+// - four blocks per SM (kMinBlocksPerSM in physics.cuh): each instance is
+//   bounded at 256 threads (64 registers; 76 B of spill stores in
+//   kstep<3,1>) and, with one neutral group, also at 224 (72 registers, 28 B)
+//   for the widths between 128 and 256 lanes; 1024 samples fill two waves of
+//   528 blocks on 132 SMs, the 28 warps of an SM's four 224-lane blocks 7 to
+//   each scheduler;
 // - explicit fmaf in the Horner steps of the rate fits, the HLLE fluxes and the
 //   PCR update; the build keeps -fmad=false, so nothing else is contracted.
 // Measured at fidelity (2,2), B = 1024, K = 50 (chip_smoke.py phases 2 and 6,
@@ -46,6 +51,8 @@
 //   accumulators kept by thread 0 in shared memory               1.276 ms
 //   (e) explicit fmaf (scaled error vs plain 1.718e-6)           1.214 ms
 //   PCR loop kept rolled, warp-partial sum unrolled               1.213 ms
+//   (f) 224 lanes (7 warps) instead of 256, 72 registers,         1.081 ms
+//       28 B of spills (1.202 ms on 256 lanes in the same run)
 // The barrier cuts gave 6%; occupancy and fewer instructions gave the rest.
 //
 // The source includes no PyTorch header; it is built with nvcc into a shared
@@ -53,8 +60,8 @@
 
 #include "physics.cuh"
 
-template <int Z, int G>
-__global__ void __launch_bounds__(kMaxLanes, kMinBlocksPerSM)
+template <int Z, int G, int NT>
+__global__ void __launch_bounds__(NT, kMinBlocksPerSM)
 kstep_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ prof,
              float* __restrict__ sacc, const float* __restrict__ nu_anom_g,
              const float* __restrict__ omega_g, const float* __restrict__ scal_g,
@@ -139,31 +146,43 @@ kstep_kernel(KParams p, int B, float* __restrict__ state, float* __restrict__ pr
   }
 }
 
-template <int Z, int G>
+template <int Z, int G, int NT>
 static void launch(const KParams& p, int B, int LN, cudaStream_t s, void* state, void* prof,
                    void* sacc, const void* nu_anom, const void* omega, const void* scalars,
                    const void* coef) {
-  kstep_kernel<Z, G><<<B, LN, 0, s>>>(p, B, (float*)state, (float*)prof, (float*)sacc,
-                                      (const float*)nu_anom, (const float*)omega,
-                                      (const float*)scalars, (const float*)coef);
+  kstep_kernel<Z, G, NT><<<B, LN, 0, s>>>(p, B, (float*)state, (float*)prof, (float*)sacc,
+                                          (const float*)nu_anom, (const float*)omega,
+                                          (const float*)scalars, (const float*)coef);
 }
 
-template <int Z, int G>
+template <int Z, int G, int NT>
 static int occupancy(int LN) {
   int n = 0;
-  const auto err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kstep_kernel<Z, G>, LN, 0);
+  const auto err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kstep_kernel<Z, G, NT>, LN, 0);
   return err == cudaSuccess ? n : -(int)err;
 }
+
+// Row of KSTEP_TABLE a width takes: 0 for 128 and 256 lanes, 1 for the others.
+static int bound_of(int LN) { return (LN == 128 || LN == kMaxLanes) ? 0 : 1; }
+
+// The instances, [row][G - 1][Z - 1]: bounded at kMaxLanes threads, and at
+// kNarrowLanes for one neutral group at the other widths. The two-group model
+// runs its kMaxLanes instance at every width: 9 instances, not 12, keep the
+// build near 1.5x that of 6.
+#define KSTEP_TABLE(f)                                                              \
+  {{{f<1, 1, kMaxLanes>, f<2, 1, kMaxLanes>, f<3, 1, kMaxLanes>},                   \
+    {f<1, 2, kMaxLanes>, f<2, 2, kMaxLanes>, f<3, 2, kMaxLanes>}},                  \
+   {{f<1, 1, kNarrowLanes>, f<2, 1, kNarrowLanes>, f<3, 1, kNarrowLanes>},          \
+    {f<1, 2, kMaxLanes>, f<2, 2, kMaxLanes>, f<3, 2, kMaxLanes>}}}
 
 extern "C" int kstep_params_size() { return (int)sizeof(KParams); }
 
 // Blocks of LN threads that one SM holds at once for Z charge states and G
 // neutral groups; a negative cudaError_t if the query fails.
 extern "C" int kstep_occupancy(int Z, int G, int LN) {
-  static decltype(&occupancy<1, 1>) const table[2][3] = {
-      {occupancy<1, 1>, occupancy<2, 1>, occupancy<3, 1>}, {occupancy<1, 2>, occupancy<2, 2>, occupancy<3, 2>}};
-  if (Z < 1 || Z > 3 || G < 1 || G > 2 || (LN != 128 && LN != kMaxLanes)) return -(int)cudaErrorInvalidValue;
-  return table[G - 1][Z - 1](LN);
+  static decltype(&occupancy<1, 1, kMaxLanes>) const table[2][2][3] = KSTEP_TABLE(occupancy);
+  if (Z < 1 || Z > 3 || G < 1 || G > 2 || !width_ok(LN)) return -(int)cudaErrorInvalidValue;
+  return table[bound_of(LN)][G - 1][Z - 1](LN);
 }
 
 // Launch one K-step block on `stream` (a cudaStream_t) for Z charge states and G
@@ -172,11 +191,11 @@ extern "C" int kstep_occupancy(int Z, int G, int LN) {
 extern "C" int kstep_launch(const KParams* p, int Z, int G, int B, int LN, void* state, void* prof,
                             void* sacc, const void* nu_anom, const void* omega,
                             const void* scalars, const void* coef, void* stream) {
-  static decltype(&launch<1, 1>) const table[2][3] = {
-      {launch<1, 1>, launch<2, 1>, launch<3, 1>}, {launch<1, 2>, launch<2, 2>, launch<3, 2>}};
-  if (Z < 1 || Z > 3 || G < 1 || G > 2 || (LN != 128 && LN != kMaxLanes)) return (int)cudaErrorInvalidValue;
+  static decltype(&launch<1, 1, kMaxLanes>) const table[2][2][3] = KSTEP_TABLE(launch);
+  if (Z < 1 || Z > 3 || G < 1 || G > 2 || !width_ok(LN)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || p->NC > LN - 2 || p->NC < 4 || p->K <= 0) return (int)cudaErrorInvalidValue;
   if (p->trace && p->K > kSlots - kTrace0) return (int)cudaErrorInvalidValue;
-  table[G - 1][Z - 1](*p, B, LN, (cudaStream_t)stream, state, prof, sacc, nu_anom, omega, scalars, coef);
+  table[bound_of(LN)][G - 1][Z - 1](*p, B, LN, (cudaStream_t)stream, state, prof, sacc, nu_anom, omega,
+                                    scalars, coef);
   return (int)cudaGetLastError();
 }

@@ -11,11 +11,18 @@
 // rounding where the plain version rounds twice, and one instruction where it
 // takes two).
 //
-// Layout. One thread block per sample, one thread per lane (blockDim = LN = 128
-// or 256). Neighbour reads (the circular lane rolls of the TPU kernel) go
-// through shared staging rows and wrap over all LN lanes, not over the NC
-// cells: the mask-free cyclic reduction relies on a wrapped read meeting an
-// exact 0 in the padding rows. Per-sample values read at one lane are broadcast:
+// Layout. One thread block per sample, one thread per lane (blockDim = LN: 128
+// lanes for NC <= 126, else the least multiple of 32 that holds NC + 2, so 224
+// at fidelity (2,2)). Neighbour reads (the circular lane rolls of the TPU
+// kernel) go through shared staging rows kMaxLanes wide, at an index masked
+// to them (kLaneMask), whatever LN is: a read past lane LN-1 meets the rows'
+// tail, zeroed once a launch by load_invariants, and a read below lane 0 wraps
+// into the tail or onto the top lanes. The mask-free cyclic reduction relies
+// on such a read meeting an exact 0 or being multiplied by one: the system is
+// block-diagonal (identity rows off the interior, sub = 0 at lane 1, sup = 0
+// at lane NC-2), so an interior lane's coupling across either end is an exact
+// 0 at every level, and the outputs on lanes 0..NC-1 are those of any wider
+// layout, bit for bit. Per-sample values read at one lane are broadcast:
 // lane 1's (anode sheath, left ghost cell) through `bc`, lane NC-2's (right
 // ghost cell) through `bn`, the new exit-plane state (lane NC-2) through `bx`.
 //
@@ -43,16 +50,23 @@ namespace {
 
 constexpr int kMaxLanes = 256;
 constexpr int kMaxWarps = kMaxLanes / 32;
-// blocks of kMaxLanes threads that each SM must hold at once (both kernels'
-// __launch_bounds__): caps a thread's registers at 65,536 / (256 x 4) = 64;
-// 4 timed best of 2, 3 and 4 (kstep.cu)
+constexpr int kLaneMask = kMaxLanes - 1;  // neighbour indices, masked to the staging rows
+// blocks that each SM must hold at once (both kernels' __launch_bounds__): at
+// kMaxLanes threads caps a thread's registers at 65,536 / (256 x 4) = 64; 4
+// timed best of 2, 3 and 4 (kstep.cu)
 constexpr int kMinBlocksPerSM = 4;
+// the K-step kernel's thread bound for the widths other than 128 and 256
+// lanes (one neutral group): 4 blocks of 224 threads leave a thread 72 registers
+constexpr int kNarrowLanes = 224;
 constexpr int kSetRows = 8;     // staging rows of a set: 1 + 2Z + (G - 1) for Z <= 3, G <= 2
 constexpr int kNCoef = 11;      // degree-10 log-poly in ln(Te)
 constexpr int kNDCoef = 10;     // its derivative
 constexpr int kMaxCoef = 7 * (kNCoef + kNDCoef);  // 6 reactions + excitation
 constexpr int kSlots = 128;     // width of the scalar and accumulator rows
 constexpr int kTrace0 = 8;      // first I_d(t) trace slot of the accumulator row
+
+// the widths both kernels launch at: a multiple of 32 from 64 to kMaxLanes lanes
+inline bool width_ok(int LN) { return LN % 32 == 0 && LN >= 64 && LN <= kMaxLanes; }
 
 // per-sample scalar slots (fused_step.P_*) and accumulator slots (fused_step.A_*)
 enum { P_DV, P_MDOT, P_UN, P_CW, P_TECATH, P_TANDIV, P_RC, P_LDT, P_ICIR };
@@ -121,7 +135,8 @@ struct Invariants {
 };
 
 // Load the per-sample scalars, the lane's constants and the rate coefficients,
-// and compute the loop invariants. Ends with a barrier.
+// zero the staging rows past lane LN-1 and compute the loop invariants. Ends
+// with a barrier.
 template <int Z>
 __device__ __forceinline__ Invariants load_invariants(const KParams& p, Shared& s, int B, int l,
                                                       int LN, const float* __restrict__ nu_anom_g,
@@ -129,12 +144,19 @@ __device__ __forceinline__ Invariants load_invariants(const KParams& p, Shared& 
                                                       const float* __restrict__ scal_g,
                                                       const float* __restrict__ coef_g) {
   constexpr int NR = Z * (Z + 1) / 2;  // ionization reactions among charge states 0..Z
-  const int M = LN - 1;
+  constexpr int M = kLaneMask;
   const int b = blockIdx.x;
   const int NC = p.NC;
   const size_t off = (size_t)b * LN + l;
   Invariants v;
   for (int j = l; j < (NR + 1) * (kNCoef + kNDCoef); j += LN) s.coef[j] = coef_g[j];
+  // the staging rows' tail past lane LN-1, which no thread writes: an exact 0
+  // for every masked read that leaves the lanes (behind the first barrier)
+  for (int j = LN + l; j < kMaxLanes; j += LN) {
+    s.pe[j] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kSetRows; ++r) s.sh[0][r][j] = s.sh[1][r][j] = 0.0f;
+  }
 
   const float* sc = scal_g + (size_t)b * kSlots;
   v.dV = sc[P_DV];
@@ -249,7 +271,7 @@ __device__ __forceinline__ StepOut physics_step(const KParams& p, const Invarian
                                                 Lane<Z, G>& st, float icir, int l, int LN) {
   constexpr int NR = Z * (Z + 1) / 2;
   constexpr int RN2 = 1 + 2 * Z;  // staging row of the fast neutral group
-  const int M = LN - 1;
+  constexpr int M = kLaneMask;
   const int NC = p.NC;
   // the two row sets; the exchanges of a step use A, B, A, B, ... in turn
   float(&A)[kSetRows][kMaxLanes] = s.sh[0];

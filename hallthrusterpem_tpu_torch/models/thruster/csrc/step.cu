@@ -12,8 +12,9 @@
 // for non-finite values after each step, is ../one_step.py.
 //
 // Design. One thread block per sample, one thread per lane, as in the K-step
-// kernel. In-place update is safe: each thread reads only its own lane from
-// device memory, before any thread of the block writes.
+// kernel; bounded at kMaxLanes threads for every width. In-place update is
+// safe: each thread reads only its own lane from device memory, before any
+// thread of the block writes.
 //
 // What bounds it on an H100: bytes, on paper. Per lane it reads 8 state
 // arrays, nu_anom and omega_ce and writes 8 state arrays and 5 outputs (~92
@@ -70,7 +71,7 @@ extern "C" int step_launch(const KParams* p, int Z, int G, int B, int LN, void* 
                            const void* coef, void* stream) {
   static decltype(&launch<1, 1>) const table[2][3] = {
       {launch<1, 1>, launch<2, 1>, launch<3, 1>}, {launch<1, 2>, launch<2, 2>, launch<3, 2>}};
-  if (Z < 1 || Z > 3 || G < 1 || G > 2 || (LN != 128 && LN != kMaxLanes)) return (int)cudaErrorInvalidValue;
+  if (Z < 1 || Z > 3 || G < 1 || G > 2 || !width_ok(LN)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || p->NC > LN - 2 || p->NC < 4) return (int)cudaErrorInvalidValue;
   table[G - 1][Z - 1](*p, B, LN, (cudaStream_t)stream, state, extras, nu_anom, omega, scalars, coef);
   return (int)cudaGetLastError();

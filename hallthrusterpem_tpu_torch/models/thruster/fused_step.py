@@ -5,10 +5,14 @@ Counterpart of the JAX package's ``models/thruster/pallas_step.py``
 (``make_physics``, ``sanitize_state``, ``build_multistep_kernel``,
 ``build_step_kernel``, ``simulate_batch_pallas_multi``, ``_pack_consts``,
 ``_initial_state``, ``_pallas_finalize``). Each sample's cells sit on lanes 0..NC-1 of a row of
-LN = 128 (NC <= 126) or 256 lanes; lanes past NC-1 are padding. Neighbour reads
-are circular rolls over all LN lanes: the mask-free cyclic reduction in the
-electron-energy solve relies on a wrapped read meeting an exact 0 in the
-padding rows, so a clamped or masked read would change the numbers.
+LN lanes (:func:`lanes_for`: 128 for NC <= 126, else the least multiple of 32, a
+warp, that holds NC + 2; 224 at fidelity (2,2), where the JAX package's TPU
+layout takes 256); lanes past NC-1 are padding. Neighbour reads here are
+circular rolls over all LN lanes, and the kernel's wrap into the zeroed tail of
+its 256-wide staging rows (``csrc/physics.cuh``) reads the same numbers: the
+mask-free cyclic reduction in the electron-energy solve relies on a read
+across either end of the interior meeting an exact 0 coupling, so a clamped
+read would change the numbers, but the layout's width does not.
 
 Packed tensors (float32, contiguous), shared by the plain version and the kernel:
 
@@ -70,8 +74,10 @@ INNER_STEPS = 50
 
 
 def lanes_for(cfg: SolverConfig) -> int:
-    """Lane width of the layout: 128 lanes for nc <= 126, else 256."""
-    return 128 if cfg.nc <= 126 else LANES
+    """Lane width of the layout: 128 lanes for nc <= 126, else the least multiple
+    of 32 that holds nc + 2 (at least two padding lanes): 160, 192, 224 or 256.
+    The kernel runs a thread a lane, so a warp of padding issues for nothing."""
+    return 128 if cfg.nc <= 126 else -(-(cfg.nc + 2) // 32) * 32
 
 
 def check_supported(cfg: SolverConfig) -> None:
@@ -166,13 +172,14 @@ def store_state(state, rho_n, nE, rho_i, mom_i, rho_n2) -> None:
 
 class Physics:
     """One timestep of the discharge on (B, LN) tensors, for one config
-    (the plain version of the CUDA kernel's step body)."""
+    (the plain version of the CUDA kernel's step body); LN is ``lanes``, by
+    default the layout's :func:`lanes_for`."""
 
-    def __init__(self, cfg: SolverConfig):
+    def __init__(self, cfg: SolverConfig, lanes: int | None = None):
         check_supported(cfg)
         self.cfg = cfg
         self.NC = cfg.nc
-        self.LN = lanes_for(cfg)
+        self.LN = lanes or lanes_for(cfg)
         self.Z = cfg.ncharge
         self.G = cfg.neutral_groups
         self.rxn, self.ex = rate_polys(cfg)
@@ -495,7 +502,7 @@ def kstep_plain(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
     ``avg_start_step <= i < num_steps`` so that the overshoot steps of the last
     block do not count. With ``cfg.num_save > 0`` step k also sets trace lane
     ``A_TRACE0 + k`` of ``sacc`` to its discharge current (K <= 120)."""
-    physics = physics or Physics(cfg)
+    physics = physics or Physics(cfg, state.shape[2])
     trace = cfg.num_save > 0
     if trace and K > MAX_TRACE_STEPS:
         raise ValueError(f"kstep: K={K} exceeds the {MAX_TRACE_STEPS} trace lanes")
@@ -555,8 +562,9 @@ def kstep(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
           physics: Physics | None = None) -> None:
     """One K-step block, in place. A CUDA tensor goes to the hand-written kernel
     (which raises if it cannot launch); a CPU tensor to the plain version. The
-    host time of the call is added to ``tracing.counts`` (``kstep_host_ns``,
-    ``kstep_blocks``) unless this thread captures a CUDA graph."""
+    host time of the call, the call and its lane width are added to
+    ``tracing.counts`` (``kstep_host_ns``, ``kstep_blocks``, ``kstep_lanes``)
+    unless this thread captures a CUDA graph."""
     t0 = time.perf_counter_ns()
     if state.device.type == "cuda":
         from hallthrusterpem_tpu_torch.models.thruster import _kernels
@@ -567,7 +575,7 @@ def kstep(state, prof, sacc, consts, i0: int, K: int, cfg: SolverConfig,
     else:
         raise ValueError(f"kstep: unsupported device {state.device}")
     if getattr(cuda_graph._local, "tally", None) is None:
-        count(kstep_host_ns=time.perf_counter_ns() - t0, kstep_blocks=1)
+        count(kstep_host_ns=time.perf_counter_ns() - t0, kstep_blocks=1, kstep_lanes=state.shape[2])
 
 
 def step_plain(state, extras, consts, cfg: SolverConfig, physics: Physics | None = None) -> None:
@@ -575,7 +583,7 @@ def step_plain(state, extras, consts, cfg: SolverConfig, physics: Physics | None
     PyTorch version of the one-step CUDA kernel (``build_step_kernel``'s
     counterpart). The state is scrubbed on entry; the circuit current is read
     from scalar slot ``P_ICIR``."""
-    physics = physics or Physics(cfg)
+    physics = physics or Physics(cfg, state.shape[2])
     scal = consts["scalars"]
     col = lambda s: scal[:, s : s + 1]
     dV, mdot_in, u_n, c_w, te_cath, tan_div, rc, l_dt, i_prev = (col(s) for s in range(9))

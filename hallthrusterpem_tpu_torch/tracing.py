@@ -14,9 +14,10 @@ timed on ``time.perf_counter`` once the profiler has stopped. Spans named
 ``counts`` holds plain integers that the program adds to whether or not a
 profiler runs, through :func:`count`:
 
-- ``kstep_host_ns``, ``kstep_blocks``: host nanoseconds spent in
-  ``fused_step.kstep``, entry to return, and the calls so timed (a call made
-  while its thread captures a CUDA graph is not timed);
+- ``kstep_host_ns``, ``kstep_blocks``, ``kstep_lanes``: host nanoseconds
+  spent in ``fused_step.kstep``, entry to return, the calls so timed (a call
+  made while its thread captures a CUDA graph is not timed) and the lane width
+  each launched, so that ``kstep_lanes / kstep_blocks`` is a run's width;
 - ``rows_attempted``, ``rows_masked``: the rows ``hallthruster_jl`` was given
   and those its guards masked as non-physical;
 - ``plume_kernel_rows``, ``plume_eager_rows``: the rows ``models.plume.current_density``
@@ -51,8 +52,8 @@ __all__ = ["span", "spans", "counts", "count", "reset_counts"]
 
 _OFF = contextlib.nullcontext()
 _lock = threading.Lock()
-counts = {"kstep_host_ns": 0, "kstep_blocks": 0, "rows_attempted": 0, "rows_masked": 0,
-          "plume_kernel_rows": 0, "plume_eager_rows": 0, "gaussian_bohm_rows": 0}
+counts = {"kstep_host_ns": 0, "kstep_blocks": 0, "kstep_lanes": 0, "rows_attempted": 0,
+          "rows_masked": 0, "plume_kernel_rows": 0, "plume_eager_rows": 0, "gaussian_bohm_rows": 0}
 #: (name, start_ns, end_ns, {counter: change}) of the latest spans closed while a profiler ran
 spans = collections.deque(maxlen=1 << 16)
 

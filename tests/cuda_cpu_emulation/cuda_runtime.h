@@ -4,7 +4,8 @@
 // another, __syncthreads() as a barrier of the block, warp shuffles through a
 // per-warp exchange buffer between two barriers of the warp's 32 threads, and
 // __shared__ as a function-local static shared by the block. The kernel launch
-// syntax is rewritten to emu_launch() by the test.
+// syntax is rewritten to emu_launch() by the test, which may also follow each
+// __shared__ declaration with emu_poison().
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -68,6 +69,17 @@ inline int __syncthreads_or(int pred) {
   emu_barrier->arrive_and_wait();
   if (threadIdx.x == 0) emu_or.store(0);
   return r;
+}
+
+// Fill a __shared__ variable with NaN as its block starts: on the card a
+// block's shared memory holds what some earlier block left, so a read of an
+// entry that no thread of the block wrote reads NaN here. Thread 0 fills it
+// and the block meets before any thread goes on (a barrier emu_barriers does
+// not count).
+template <class T>
+inline void emu_poison(T& v) {
+  if (threadIdx.x == 0) std::memset(&v, 0xff, sizeof v);
+  emu_barrier->arrive_and_wait();
 }
 
 // every lane of the warp must call them, as on the card with a full mask

@@ -190,6 +190,24 @@ def test_trace_matches_pallas_multi(ncharge, nsteps, num_save, inner):
     assert rel < 0.01
 
 
+@pytest.mark.parametrize("num_cells,lanes", [
+    (60, 128), (124, 128),              # nc <= 126: 128 lanes
+    (125, 160), (156, 160), (158, 192),  # the least multiple of 32 holding nc + 2
+    (200, 224), (222, 256), (252, 256),  # fidelity (2,2): 224; the widest grid: 256
+])
+def test_lanes_for_sizes_the_layout_to_the_warp(num_cells, lanes):
+    """The lane width: 128 lanes up to 126 cells with the ghosts, then a warp
+    at a time, at least two padding lanes; the packed tensors follow it, and the
+    JAX package keeps its TPU layout (256 lanes past 126)."""
+    ct = tcfg.SolverConfig(num_cells=num_cells, ncharge=1)
+    assert fs.lanes_for(ct) == lanes and lanes % 32 == 0 and lanes >= ct.nc + 2
+    assert ps.lanes_for(jcfg.SolverConfig(num_cells=num_cells, ncharge=1)) == (128 if ct.nc <= 126 else 256)
+    params = tcfg.make_params({"V_d": torch.full((2,), 300.0)}, device="cpu")
+    consts, state, prof, sacc = fs.init_carry(params, torch.full((ct.nc,), 0.015), ct)
+    assert state.shape[2] == prof.shape[2] == consts["nu_anom"].shape[1] == consts["omega_ce"].shape[1] == lanes
+    assert not state[:, :, ct.nc:].any() and not consts["nu_anom"][:, ct.nc:].any()
+
+
 def test_grids_wider_than_the_layout_raise():
     """Past 254 cells the lane layout does not fit: the port names the lax path."""
     ct = tcfg.SolverConfig(num_cells=300, ncharge=1)

@@ -112,13 +112,37 @@ def test_coupled_pem_kernel_vs_plain_on_card():
 
 @pytest.mark.parametrize("ncharge,groups", [(1, 1), (3, 1), (3, 2)])
 def test_kstep_holds_four_blocks_per_sm(ncharge, groups):
-    """The K-step kernel's launch bounds leave room for four 256-thread blocks
-    on an SM, the occupancy its design is timed at."""
+    """The K-step kernel's launch bounds leave room for four blocks on an SM,
+    the occupancy its design is timed at: at fidelity (2,2) blocks of 224
+    threads (202 lanes of cells and ghosts in 7 warps)."""
     _need_card()
     cfg = CoupledPEM(model_fidelity=(2, 2), duration=1e-6, device="cuda").cfg
     cfg = dataclasses.replace(cfg, ncharge=ncharge, neutral_groups=groups)
-    assert fs.lanes_for(cfg) == 256
+    assert fs.lanes_for(cfg) == 224
     assert _kernels.kstep_blocks_per_sm(cfg) >= 4
+
+
+@pytest.mark.parametrize("variant", [{}, {"num_save": 1000}], ids=["plain", "trace"])
+def test_kstep_224_lanes_match_256_bit_for_bit_on_card(variant):
+    """Fidelity (2,2) on its 224 lanes and forced onto 256 from the same state
+    (the instance bounded at 224 threads against the one bounded at 256): every
+    state array and profile sum on lanes 0..NC-1 and every accumulator slot
+    equal bit for bit after one K = 50 launch."""
+    _need_card()
+    _, cfg, _, (consts, state, prof, sacc) = _carry_on_card((2, 2), **variant)
+    NC = cfg.nc
+    widen = lambda x: torch.nn.functional.pad(x, (0, 256 - x.shape[-1])).contiguous()
+    wide_consts = dict(consts, nu_anom=widen(consts["nu_anom"]), omega_ce=widen(consts["omega_ce"]))
+    narrow = [t.clone() for t in (state, prof, sacc)]
+    wide = [widen(state), widen(prof), sacc.clone()]
+    assert narrow[0].shape[2] == 224
+    _kernels.kstep_cuda(*narrow, consts, 0, 50, cfg)
+    _kernels.kstep_cuda(*wide, wide_consts, 0, 50, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(narrow[0]).all()
+    assert torch.equal(narrow[0][..., :NC], wide[0][..., :NC])
+    assert torch.equal(narrow[1][..., :NC], wide[1][..., :NC])
+    assert torch.equal(narrow[2], wide[2])
 
 
 def test_kernel_wrapper_checks_inputs_on_card():

@@ -128,8 +128,9 @@ def test_spans_of_a_system_call_nest_as_stated():
             assert counted["rows_attempted"] == 3 and counted["kstep_blocks"] > 0
 
 
-def _carry(B=2, duration=6e-7):
-    cfg = SolverConfig(num_cells=60, ncharge=1, dt=5e-9, duration=duration, average_start_time=duration / 2)
+def _carry(B=2, duration=6e-7, num_cells=60):
+    cfg = SolverConfig(num_cells=num_cells, ncharge=1, dt=5e-9, duration=duration,
+                       average_start_time=duration / 2)
     params = make_params({"V_d": torch.full((B,), 300.0)}, device="cpu")
     base_B = torch.full((cfg.nc,), 0.015)
     return cfg, params, base_B
@@ -148,6 +149,19 @@ def test_kstep_counters_count_the_blocks_run(monkeypatch):
     assert tracing.counts["kstep_host_ns"] > 0
 
 
+@pytest.mark.parametrize("num_cells,lanes", [(60, 128), (200, 224)])
+def test_kstep_lanes_counts_the_launched_width(num_cells, lanes):
+    """``kstep_lanes / kstep_blocks`` is the lane width the launches ran:
+    128 at fidelity (0,0)'s grid and 224 at (2,2)'s."""
+    cfg, params, base_B = _carry(num_cells=num_cells, duration=1e-8)
+    consts, state, prof, sacc = fs.init_carry(params, base_B, cfg)
+    tracing.reset_counts()
+    for i0 in (0, 1):
+        fs.kstep(state, prof, sacc, consts, i0, 1, cfg)
+    assert tracing.counts["kstep_blocks"] == 2
+    assert tracing.counts["kstep_lanes"] == 2 * lanes == 2 * state.shape[2]
+
+
 def test_kstep_under_a_capture_is_not_timed():
     cfg, params, base_B = _carry(duration=2e-7)
     consts, state, prof, sacc = fs.init_carry(params, base_B, cfg)
@@ -157,7 +171,7 @@ def test_kstep_under_a_capture_is_not_timed():
         fs.kstep(state, prof, sacc, consts, 0, fs.INNER_STEPS, cfg)
     finally:
         cuda_graph._local.tally = None
-    assert tracing.counts["kstep_blocks"] == tracing.counts["kstep_host_ns"] == 0
+    assert tracing.counts["kstep_blocks"] == tracing.counts["kstep_host_ns"] == tracing.counts["kstep_lanes"] == 0
     fs.kstep(state, prof, sacc, consts, fs.INNER_STEPS, fs.INNER_STEPS, cfg)
     assert tracing.counts["kstep_blocks"] == 1
 
