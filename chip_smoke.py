@@ -12,35 +12,33 @@ Phases, each printed with its seconds:
    register / shared-memory / spill lines; the K-step kernel's blocks per SM
    at the main path's config, and from its SASS (``cuobjdump``) the block
    barriers and instructions of one step and the instruction count by opcode;
-3. kernel against its plain PyTorch version on the card at the main path's
-   shapes (fidelity (2,2): 202 cells, 224 lanes, 3 charge states, plume on;
-   B = 1024): one K = 50 launch against 50 plain steps from the same state, every
-   state array, profile sum and accumulator slot; then 20 launches against 1,000
-   plain steps, the accumulators;
 4. main path: ``CoupledPEM(model_fidelity=(2,2), duration=2e-5)`` (9,138 steps)
-   at B = 1024, one warm run and two timed runs, with the launch count checked;
-5. coupled outputs against the plain version: B = 16, 914 steps;
-6. the kernel's time per launch at B = 1024, its plain version's and its bound,
-   beside its block barriers per step; the SM clock under load, and the time a
-   step would take at that clock if every scheduler issued every cycle;
-7. the K-step kernel's variants against the plain version at B = 1024, fidelity
-   (2,2): one launch with the I_d(t) trace lanes, one with two neutral groups;
-8. the one-step kernel against its plain version: one step at B = 1024, the
-   state and all five output arrays;
-9. the wrapper path: ``hallthruster_jl`` with the pem_v0 SPT-100 Thruster
-   component (of ``configs/pem_v0_SPT-100.json``) at fidelity (2,2),
-   B = 1024, ``num_save`` 1000 and the cycle average, cut to ``WRAPPER_DURATION``
-   (5e-4 s, the bench length); one warm run and two timed runs, the
-   launch count checked, the raw averages the failure guards judge; then the
-   kernel's time per launch on this config, with the trace lanes and without;
+   at B = 1024, one run with the launch count checked: phase 17's reference;
+   ``python -m hallthrusterpem_tpu_torch.bench`` as a child process, its line,
+   finite rows and launches checked;
+6. the kernel's time per launch at B = 1024, its plain version's and its bound
+   (counted as ``pembench/work.py`` counts a call: one lane per cell, its
+   ``PEAKS``), beside its block barriers per step; the SM clock under load, and
+   the time a step would take at that clock if every scheduler issued every
+   cycle; one launch against 50 plain steps at B = 1024 on the main path's
+   config, with the trace lanes and with two neutral groups;
+9. the wrapper path: ``hallthruster_jl`` on the pem_v0 SPT-100 Thruster
+   component (of ``configs/pem_v0_SPT-100.json``) at fidelity (2,2), B = 1024,
+   ``num_save`` 1000, cut to ``WRAPPER_DURATION`` (5e-4 s, the bench length),
+   one call with its launches checked; the kernel's time per launch on this
+   config, with the trace lanes and without; (b) ``System.predict(use_model=
+   "best")`` on that JSON (B = ``SYSTEM_BATCH``) equal to a direct
+   ``hallthruster_jl`` call; (c) the H9-class system (``H9_CONFIG``) at one call
+   of ``H9_MIX``: its kernel flags, launches and counters, its first launch
+   against the plain version;
 10. the one-step driver at B = 1024, 914 steps, through its CUDA graphs and
-    through its eager route (equal bit for bit, each launching the step kernel
-    914 times; timed, the captures apart), against the K-step driver;
-11. the one-step kernel's time per launch, its plain version's and its bound;
-12. the lax solver (fidelity (2,2), B = 8, 200 steps) on the card against the
-    same code on the host CPU: in float64, the config's own precision, which
-    routes it to the lax solver, and in float32 through ``solver`` directly; on
-    the card its replayed CUDA graphs against its eager route, bit for bit;
+    through its eager route (each launching the step kernel 914 times; timed,
+    the captures apart), equal bit for bit, against the K-step driver;
+11. the one-step kernel against its plain version (one step, B = 1024), its
+    time per launch, its plain version's and its bound;
+12. the lax solver (fidelity (2,2), B = 8, 200 steps) on the card through its
+    replayed CUDA graphs (capture included) and through its eager route, timed,
+    in float32 and in float64;
 13. the full-width lax path: ``CoupledPEM(model_fidelity=(4,2))`` (300 cells + 2
     ghosts, 3 charge states) at B = 1024 for 2,000 steps through the CUDA
     graphs in one segment and in 500-step chunks, and through the eager route,
@@ -48,9 +46,6 @@ Phases, each printed with its seconds:
     B = 1024, 500 steps, timed; the capture's seconds and ``LAX_REPLAYS``
     replays of one graph timed, and the card's busy time a step from
     ``torch.profiler`` traces of one replay and of 20 eager steps;
-14. the System path: the pem_v0 SPT-100 JSON configuration, its Thruster cut to
-    ``WRAPPER_DURATION``, ``sample_inputs(256)`` and ``predict(use_model="best")``
-    through the K-step kernel, held equal to a direct ``hallthruster_jl`` call;
 15. the surrogate path on ``configs/pem_v0_SPT-100_compression.json`` (the r5
     campaign's configuration with its compression maps), the Thruster cut to
     ``WRAPPER_DURATION``: (a) ``generate_training_data`` labels ``SURR_SAMPLES``
@@ -83,15 +78,14 @@ Phases, each printed with its seconds:
     nuisance inputs, ``UQ_SOBOL_N`` x 20 rows in one batch on the card (timed as
     the least of ``UQ_SOBOL_TIMED_CALLS`` calls after a warm one), and the card
     against the CPU at ``UQ_SOBOL_CHECK_N``;
-17. the multi-device path on phase 4's inputs (B = 1024) and outputs: (a)
-    ``BatchExecutor(make_mesh())`` over every card of the machine runs
-    ``CoupledPEM``; (b) ``simulate_batch_sharded`` on ``Mesh([cuda:0, cuda:0])``,
-    two shards on one card, then the plume; (c) two processes on the card
-    (``parallel.distributed.initialize``, gloo on a free localhost port), each
-    ``process_local_batch`` of half the rows, then ``gather_to_host``: each
-    equal to phase 4 bit for bit, with ``kstep`` launched once per shard and
-    launch; (d) the host's µs per ``kstep`` launch with 1 and 2 threads
-    enqueuing (``PARALLEL_HOST_LAUNCHES`` each);
+17. the multi-device path on phase 4's inputs (B = 1024) and outputs, each
+    equal bit for bit with its launches counted: (a) ``BatchExecutor(
+    make_mesh())``; (b) ``simulate_batch_sharded`` on two shards of the card; (c) two
+    processes on the card (``parallel.distributed.initialize``, gloo on a free
+    localhost port), each ``process_local_batch`` of half the rows, then
+    ``gather_to_host``, equal to phase 4 bit for bit; (d) the host's µs per
+    ``kstep`` launch with 1 and 2 threads enqueuing (``PARALLEL_HOST_LAUNCHES``
+    each);
 18. the workflow scripts of ``hallthrusterpem_tpu_torch/scripts`` on the card:
     (a) ``install_solver`` (the build, warm here, and a smoke run at fidelities
     (0,0), (1,1), (2,2)), then ``kstep<1,1>`` and ``kstep<2,1>`` (fidelities
@@ -135,43 +129,23 @@ Phases, each printed with its seconds:
     ``build/sweep/``, ``mlp_sweep`` fits ``SWEEP_VARIANTS`` (their steps cut to
     ``SWEEP_STEPS``) scored on r5's test set, and the saved best reloads bit for
     bit;
-21. ``python -m hallthrusterpem_tpu_torch.bench`` (the port of ``bench.py``)
-    with its defaults as a child process: its JSON line with ``bench.py``'s
-    keys and a finite value, at least ``BENCH_FINITE`` of 1024 rows finite,
-    ``ceil(steps / 50)`` kstep launches in each timed run, and its value within
-    ``BENCH_GATE`` of ``1024 * 0.5 sim-ms / (launches x phase 6's ms a launch)``;
-22. the plume's kernel against its plain version at the rows a call of each
-    benchmark cell holds (``PLUME_ROWS``), with the thrust ``T`` and every
-    eighth row masked (NaN ``I_B0`` and ``T``), in float32, in float64 and mixed
-    as the Thruster gives them once a row is masked (``I_B0`` and ``T`` in
-    float64, the rest float32): every output, ``T_c`` among them, of the plain
-    version's type and within ``PLUME_TOL`` (scaled; the divergence angle in
-    float32 within ``PLUME_DIV_TOL_F32``), one launch a call; its time on the
-    card a launch (back to back), its host time a call, its bound, and the plain
-    version's wall a call and operators a call;
-23. the pem_v0 H9-class system (GaussianBohm transport under a
-    SimpleLogisticShift pressure response; no ion wall losses, plume expansion
-    or circuit): ``System.predict(use_model="best")`` on the benchmark's frozen
-    ``H9_CONFIG`` (fidelity (2,2), 5e-5 s) at one call of its facility sweep
-    (``H9_MIX``, 1,024 rows at four chamber pressures): ``kstep<3,1>`` with
-    those flags, ``ceil(steps / K)`` launches, its first launch against the
-    plain version from the same carry (within ``STATE_RTOL``), the finite share
-    of the rows at each pressure, and the counters ``gaussian_bohm_rows`` and
-    ``plume_kernel_rows`` equal to ``rows_attempted``; a second call timed;
-24. the K-step kernel's lane width: ``kstep<3,1>`` at fidelity (2,2) on its
-    224 lanes against the same launches forced onto 256, bit for bit on lanes
-    0..NC-1 and the accumulators, timed at each batch of ``WIDTH_BATCHES``;
-    registers, spill bytes, barriers and static instructions a warp-step of
-    each instance (and of ``kstep<1,1>`` at 128 lanes); and a probe of where
-    the warps of four co-resident 224-thread blocks sit on an SM's schedulers.
+22. the plume's kernel at the rows a call of each benchmark cell holds
+    (``PLUME_ROWS``), float32 with the thrust ``T`` and every eighth row masked
+    (NaN ``I_B0`` and ``T``): against its plain version, its time on the card a
+    launch (back to back), its host time a call, its bound, and the plain
+    version's wall a call and operators a call.
 
-It prints a ``{"lax": {...}}`` line (phases 12-14), a ``{"surrogate": {...}}``
+The numbers skip the phases whose checks the ``gpu`` tests
+(``tests/test_torch_gpu.py``) or the benchmark's cells (``pembench/``) make.
+It prints a ``{"lax": {...}}`` line (phases 12-13), a ``{"surrogate": {...}}``
 line (phase 15), a ``{"uq": {...}}`` line (phase 16), a ``{"parallel": {...}}``
 line (phase 17), a ``{"workflow": {...}}`` line (phase 18), a ``{"studies": {...}}``
-line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), a ``{"bench": {...}}``
-line (phase 21), a ``{"h9": {...}}`` line (phase 23), a ``{"widths": {...}}`` line (phase 24), a ``{"kernels": [...]}``
-line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``, ``plume``), the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero; without
-a CUDA device it exits non-zero before printing any result.
+line (phase 19), a ``{"parity_sweep": {...}}`` line (phase 20), ``{"bench": {...}}``
+(phase 4) and ``{"systems": {...}}`` (phase 9) lines, a ``{"kernels": [...]}``
+line (``kstep<3,1>``, ``kstep<1,1>``, ``kstep<2,1>``, ``step``, ``plume``), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero; without a CUDA device it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -189,8 +163,6 @@ import sys
 import time
 from pathlib import Path
 
-H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 LEAD_CYCLES = 200_000_000  # ~0.1 s: the card's spin before back-to-back timed launches
 KERNEL_SOURCE = "hallthrusterpem_tpu_torch/models/thruster/csrc/kstep.cu"
 KERNEL_REPLACES = "hallthrusterpem_tpu/models/thruster/pallas_step.py:677"
@@ -202,20 +174,24 @@ QOI_RTOL = 1e-2  # time-averaged QoIs (the CPU tests' run-level bound)
 # failure guards judge time averages, and before ~0.2 ms the averaging window
 # lies in the ignition transient, where they reject every row
 WRAPPER_DURATION = 5e-4
-# the lax solver (phases 12-13): batch and steps compared card against host CPU,
-# their bound per dtype; batch and steps of the full-width fidelity (4,2) run,
-# its chunk, and the steps of its segment traced by torch.profiler; steps of the
-# float64 run at fidelity (2,2)
-LAX_PARITY_BATCH = 8
-LAX_PARITY_STEPS = 200
-LAX_TOL = {"float32": 1e-4, "float64": 1e-10}
+# the lax solver (phases 12-13): batch and steps of the small runs; batch and
+# steps of the full-width fidelity (4,2) run, its chunk, and the steps of its
+# segment traced by torch.profiler; steps of the float64 run at fidelity (2,2)
+LAX_SMALL_BATCH = 8
+LAX_SMALL_STEPS = 200
 LAX_BATCH = 1024
 LAX_WIDE_STEPS = 2000
 LAX_CHUNK = 500
 LAX_TRACE_STEPS = 20
 LAX_REPLAYS = 4  # phase 13: replays of one captured graph, timed
 LAX_F64_STEPS = 500
-SYSTEM_BATCH = 256  # phase 14
+SYSTEM_BATCH = 256  # phase 9b: System.predict on pem_v0_SPT-100.json
+# phase 9c: the H9-class system and one call of its cell's traffic
+H9_CONFIG = "pembench/configs/h9_pem_v0_a22.json"
+H9_MIX = "h9_pressure_sweep"
+H9_SEED = 23
+BENCH_TIMEOUT = 300  # phase 4: the seconds the bench's child process may take
+BENCH_FINITE = 1014  # phase 4: the finite rows of 1,024 the bench must report
 # phase 15: samples labelled and their chunk; the MLP's width, members, steps and
 # batch (the r5 campaign's, runs/r5/surr); fresh samples predicted; MISC
 # iterations, their surplus points, the samples of the card-vs-host check; the
@@ -299,60 +275,12 @@ PARITY_ULP = 2.0**-22
 SWEEP_ROWS = 1024
 SWEEP_VARIANTS = ("base6k", "wide512")
 SWEEP_STEPS = 300
-# phase 21: the bench's child process, its finite rows and its value against
-# batch * 0.5 sim-ms / (launches x phase 6's ms a launch)
-BENCH_TIMEOUT = 300
-BENCH_FINITE = 1014
-BENCH_GATE = (0.90, 1.10)
 # phase 22: the plume's kernel
 PLUME_SOURCE = "hallthrusterpem_tpu_torch/models/csrc/plume.cu"
 PLUME_ROWS = (23, 1024, 1472)  # a call of a22_mcmc_eval, a00_labelling, a22_predictive
 PLUME_TOL = 1e-6
 PLUME_DIV_TOL_F32 = 5e-6  # the sum order alone moves arccos by up to 2.1e-6 (tests/test_torch_plume_emulated.py)
 PLUME_REPS = 200
-# phase 23: the H9-class system at one call of the benchmark's h9_facility_sweep cell
-H9_CONFIG = "pembench/configs/h9_pem_v0_a22.json"
-H9_MIX = "h9_pressure_sweep"
-H9_SEED = 23
-# phase 24: the K-step kernel's lane width
-WIDTH_BATCHES = {1024: 20, 23: 50, 1: 50}  # batch -> timed launches (a22_predictive's, a22_mcmc_eval's, one row)
-WIDTH_ORDER = (224, 256, 256, 224)  # each width timed twice, in this order, from the same carry
-PROBE_SPIN_CYCLES = 2_000_000  # ~1 ms: every probe block of the one wave resident at once
-# the probe of phase 24: each warp of one wave of 224-thread blocks, four to an
-# SM (held there by 56 KB of shared memory a block), records its SM, its
-# hardware slot (%warpid) and its block, then spins so that the SM's blocks
-# overlap; a slot's scheduler is taken as the slot mod 4
-PROBE_SOURCE = r"""
-#include <cuda_runtime.h>
-__global__ void __launch_bounds__(224, 4) probe_kernel(int* out, long long spin) {
-  extern __shared__ float pad[];
-  unsigned sm, slot;
-  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-  asm volatile("mov.u32 %0, %%warpid;" : "=r"(slot));
-  const long long t0 = clock64();
-  while (clock64() - t0 < spin) pad[threadIdx.x] = (float)t0;
-  if ((threadIdx.x & 31) == 0) {
-    int* o = out + 3 * (blockIdx.x * 7 + threadIdx.x / 32);
-    o[0] = (int)sm;
-    o[1] = (int)slot;
-    o[2] = blockIdx.x;
-  }
-}
-extern "C" int probe_run(int* host, int blocks, long long spin) {
-  const int smem = 56 * 1024;
-  int* dev = nullptr;
-  cudaError_t err = cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaMalloc(&dev, sizeof(int) * 3 * 7 * blocks);
-  if (err == cudaSuccess) {
-    probe_kernel<<<blocks, 224, smem>>>(dev, spin);
-    err = cudaDeviceSynchronize();
-  }
-  if (err == cudaSuccess) err = cudaMemcpy(host, dev, sizeof(int) * 3 * 7 * blocks, cudaMemcpyDeviceToHost);
-  cudaFree(dev);
-  return (int)err;
-}
-"""
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -363,42 +291,58 @@ def scaled_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def carry_errs(fs, got, ref) -> tuple:
+def carry_errs(fs, got, ref, trace: bool = False) -> tuple:
     """(max scaled error, max absolute error, arrays compared) of one K-step
     carry ``(state, prof, sacc)`` against another: each state and profile row,
-    and the accumulator slots up to the circuit current."""
+    and the accumulator slots up to the circuit current (with ``trace``, the
+    trace slots of one launch too)."""
     (ks, kp, ka), (ps, pp, pa) = got, ref
+    slots = list(range(fs.A_ICIR + 1)) + (list(range(fs.A_TRACE0, fs.A_TRACE0 + fs.INNER_STEPS)) if trace else [])
     pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kp[j], pp[j]) for j in range(kp.shape[0])]
-    pairs += [(ka[:, j], pa[:, j]) for j in range(fs.A_ICIR + 1)]
+    pairs += [(ka[:, j], pa[:, j]) for j in slots]
     return (max(scaled_err(k, p) for k, p in pairs), max(float((k - p).abs().max()) for k, p in pairs),
             len(pairs))
 
 
-def count_ops(fn) -> int:
-    """Float operations of ``fn``: one per output element of every arithmetic
-    aten operator it dispatches (data movement and views are not counted)."""
+def kstep_vs_plain(fs, base_B, cfg, seed: int) -> tuple:
+    """One K-step launch against ``fs.INNER_STEPS`` plain steps from the same
+    carry at B = 1024, accumulating from step 0: :func:`carry_errs` of the two,
+    after checking that the kernel's carry is finite."""
     import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
 
-    arith = {"add", "sub", "mul", "div", "neg", "exp", "log", "sqrt", "rsqrt", "reciprocal",
-             "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "where", "sign", "abs",
-             "pow", "lt", "le", "gt", "ge", "eq", "ne", "isfinite", "logical_not", "logical_or",
-             "bitwise_or", "bitwise_not", "any", "sum", "rsub"}
+    from hallthrusterpem_tpu_torch.pem import _coupled_pre, default_coupled_inputs
 
-    class Counter(TorchDispatchMode):
-        n = 0
+    cfg = dataclasses.replace(cfg, average_start_time=0.0)
+    x = default_coupled_inputs(1024, torch.Generator().manual_seed(seed), spread=0.08, device="cuda")
+    consts, *ref = fs.init_carry(_coupled_pre(x, cfg)[0], base_B, cfg)
+    got = [t.clone() for t in ref]
+    fs.kstep(*got, consts, 0, fs.INNER_STEPS, cfg, fs.Physics(cfg))
+    fs.kstep_plain(*ref, consts, 0, fs.INNER_STEPS, cfg, fs.Physics(cfg))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got), "kernel carry not finite"
+    return carry_errs(fs, got, ref, trace=bool(cfg.num_save))
 
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = func.overloadpacket.__name__.rstrip("_")
-            if name in arith:
-                numel = max((a.numel() for a in args if isinstance(a, torch.Tensor)), default=1)
-                Counter.n += max(numel, out.numel() if isinstance(out, torch.Tensor) else 1)
-            return out
 
-    with Counter():
-        fn()
-    return Counter.n
+def bound(ops: int, n_bytes: int) -> dict:
+    """The least time on this card of ``ops`` float32 operations and
+    ``n_bytes`` bytes: the larger of the two over its published rates
+    (``PEAKS`` of ``pembench/work.py``)."""
+    import torch
+
+    from pembench.work import PEAKS
+
+    flops, bandwidth = PEAKS[torch.cuda.get_device_name(0)]
+    ops_ms, bytes_ms = ops / flops * 1e3, n_bytes / bandwidth * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def per_cell(consts: dict, tensors, nc: int) -> tuple:
+    """Copies of ``consts`` and of the lane-layout ``tensors`` cut to lanes
+    0..nc-1: one lane per cell and ghost cell, no padding lanes, as
+    ``pembench/work.py`` counts a row's work."""
+    cut = lambda x: x[..., :nc].clone()
+    return dict(consts, nu_anom=cut(consts["nu_anom"]), omega_ce=cut(consts["omega_ce"])), [cut(t) for t in tensors]
 
 
 def count_dispatches(fn) -> int:
@@ -458,20 +402,6 @@ def step_loop_counts(sass: list, n_levels: int) -> tuple:
     return (bars(body) + (n_levels - 1) * bars(pcr), len(body) + (n_levels - 1) * len(pcr))
 
 
-def ptxas_usage(log_text: str, mangled: str) -> dict:
-    """Registers and spill bytes that ptxas gave the kernel whose mangled name
-    starts with ``mangled``, from a build's ``-Xptxas -v`` log."""
-    for block in re.split(r"Compiling entry function '", log_text)[1:]:
-        if block.startswith(mangled):
-            regs = re.search(r"Used (\d+) registers", block)
-            stores = re.search(r"(\d+) bytes spill stores", block)
-            loads = re.search(r"(\d+) bytes spill loads", block)
-            return {"registers": int(regs.group(1)) if regs else None,
-                    "spill_stores": int(stores.group(1)) if stores else None,
-                    "spill_loads": int(loads.group(1)) if loads else None}
-    raise RuntimeError(f"no ptxas lines for {mangled}")
-
-
 def kstep_mangled(ncharge: int, groups: int, lanes: int) -> str:
     """The start of the mangled name of the K-step instance that a launch of
     ``lanes`` threads runs: bounded at 256 threads for 128 and 256 lanes and
@@ -519,16 +449,20 @@ def cuda_ms(fn, reps: int, lead: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kstep_bound(fs, kernels, carry, cfg, physics) -> dict:
+def kstep_bound(fs, kernels, carry, cfg) -> dict:
     """The least time of one K = 50 launch from ``carry`` ``(consts, state,
-    prof, sacc)``: the larger of its operations (counted on the plain version:
-    one step's and the set-up's, from 1 and 2 steps) over the card's float32
-    rate and its bytes over the memory rate. ``bytes``: state and profile sums
-    read and written; of each sample's 128 accumulator slots the ones up to the
-    circuit current read and written (no trace lanes), of its 128 scalar slots
-    the ones before it read; the lane constants and the rate coefficients read.
-    The plain steps advance ``carry``."""
-    consts, state, prof, sacc = carry
+    prof, sacc)``, on a copy with one lane per cell (:func:`per_cell`): the
+    larger of its operations (counted on the plain version: one step's and the
+    set-up's, from 1 and 2 steps) over the card's float32 rate and its bytes
+    over the memory rate. ``bytes``: state and profile sums read and written;
+    of each sample's 128 accumulator slots the ones up to the circuit current
+    read and written (no trace lanes), of its 128 scalar slots the ones before
+    it read; the lane constants and the rate coefficients read."""
+    from pembench.work import count_ops
+
+    consts, (state, prof) = per_cell(carry[0], carry[1:3], cfg.nc)
+    sacc = carry[3].clone()
+    physics = fs.Physics(cfg, cfg.nc)
     K, batch = fs.INNER_STEPS, sacc.shape[0]
     ops1 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 1, cfg, physics))
     ops2 = count_ops(lambda: fs.kstep_plain(state, prof, sacc, consts, 0, 2, cfg, physics))
@@ -536,46 +470,7 @@ def kstep_bound(fs, kernels, carry, cfg, physics) -> dict:
     n_bytes = 4 * (2 * (state.numel() + prof.numel()) + 2 * batch * (fs.A_ICIR + 1)
                    + consts["nu_anom"].numel() + consts["omega_ce"].numel()
                    + batch * fs.P_ICIR + kernels.rate_coefficients(cfg).size)
-    ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops": ops, "bytes": n_bytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms, "ops_per_step": ops2 - ops1}
-
-
-def same_carry(solver, a, b) -> bool:
-    """Two lax carries equal bit for bit (NaN where NaN)."""
-    return all(same_bits(x, y) for x, y in zip(solver._leaves(a), solver._leaves(b)))
-
-
-def lax_card_vs_cpu(cfg, params, base_B, n_steps: int) -> tuple:
-    """Phase 12 for one config: ``n_steps`` lax-solver steps on the card
-    (replayed CUDA graphs, then the eager route from the same carry) and on the
-    host CPU from the same inputs. Returns the largest scaled error of the
-    card's graphed carry against the host's over the state and the running sums
-    (the failure flags must agree), whether the graphed carry equals the eager
-    one bit for bit, and both routes' seconds (the graphs' with their capture)."""
-    import torch
-
-    from hallthrusterpem_tpu_torch.models.thruster import solver
-
-    carry = solver._init_batch(params, base_B, cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    card = solver._segment_batch(params, base_B, carry, cfg, n_steps)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    eager = solver._segment_batch_eager(params, base_B, carry, cfg, n_steps)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    cpu_p, cpu_b = {k: v.cpu() for k, v in params.items()}, base_B.cpu()
-    cpu = solver._segment_batch(cpu_p, cpu_b, solver._init_batch(cpu_p, cpu_b, cfg), cfg, n_steps)
-    (card_state, card_acc, card_i, card_failed), (cpu_state, cpu_acc, _, cpu_failed) = card, cpu
-    assert int(card_i) == n_steps, int(card_i)
-    assert torch.equal(card_failed.cpu(), cpu_failed), "failure flags differ"
-    pairs = list(zip(card_state, cpu_state)) + [(card_acc[k], cpu_acc[k]) for k in cpu_acc]
-    for got, _ in pairs:
-        assert got.device.type == params["V_d"].device.type and got.dtype == solver._dtype(cfg)
-    return (max(scaled_err(got.cpu(), ref) for got, ref in pairs), same_carry(solver, card, eager),
-            t1 - t0, t2 - t1)
+    return dict(bound(ops, n_bytes), ops_per_step=ops2 - ops1)
 
 
 def device_busy(fn) -> tuple:
@@ -601,7 +496,7 @@ def device_busy(fn) -> tuple:
 
 
 def lax_phases(kstep_us: float) -> dict:
-    """Phases 12 and 13: the lax solver on the card against the host CPU, then
+    """Phases 12 and 13: the lax solver's two routes on the card, timed, then
     the full-width fidelity (4,2) ``CoupledPEM`` (monolithic and chunked, and a
     traced segment of it) and the float64 fidelity (2,2) one, timed. Returns the
     ``{"lax": ...}`` record."""
@@ -614,27 +509,26 @@ def lax_phases(kstep_us: float) -> dict:
 
     dev, sync, batch = torch.device("cuda"), torch.cuda.synchronize, LAX_BATCH
     record = {}
-    # ---- 12. lax on the card against lax on the host CPU: fidelity (2,2), B = 8;
-    # on the card, the replayed graphs against the eager route bit for bit
+    # ---- 12. the lax solver's graphs and eager route: fidelity (2,2), B = 8
     t0 = time.perf_counter()
     pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-5, device=dev)
-    inp = default_coupled_inputs(LAX_PARITY_BATCH, torch.Generator().manual_seed(12), spread=0.08, device=dev)
+    inp = default_coupled_inputs(LAX_SMALL_BATCH, torch.Generator().manual_seed(12), spread=0.08, device=dev)
     for dtype in ("float32", "float64"):
         cfg = dataclasses.replace(pem.cfg, dtype=dtype, average_start_time=0.0,
-                                  duration=LAX_PARITY_STEPS * pem.cfg.dt)
-        assert thruster.uses_lax_solver(cfg) == (dtype == "float64")
+                                  duration=LAX_SMALL_STEPS * pem.cfg.dt)
         params, _ = _coupled_pre(inp, cfg)
-        err, equal, graph_s, eager_s = lax_card_vs_cpu(cfg, params, pem.base_B, LAX_PARITY_STEPS)
-        record[f"card_vs_cpu_scaled_err_{dtype}"] = err
-        record[f"graph_equals_eager_{dtype}"] = equal
-        record[f"parity_graph_s_{dtype}"], record[f"parity_eager_s_{dtype}"] = graph_s, eager_s
-        log(f"[12 lax parity] {dtype}, {cfg.num_cells} cells, {cfg.ncharge} charge states, "
-            f"B={LAX_PARITY_BATCH}, {LAX_PARITY_STEPS} steps: card vs host CPU max scaled error {err:.3e} "
-            f"(tolerance {LAX_TOL[dtype]:g}); on the card the CUDA graphs ({graph_s:.3f} s with their capture) "
-            f"{'equal' if equal else 'DIFFER FROM'} the eager route ({eager_s:.3f} s) bit for bit")
-        assert err < LAX_TOL[dtype], (dtype, err)
-        assert equal, f"{dtype}: graphed lax steps differ from the eager ones"
-    log(f"[12 lax parity] done ({time.perf_counter() - t0:.2f} s)")
+        carry = solver._init_batch(params, pem.base_B, cfg)
+        walls = []
+        for segment in (solver._segment_batch, solver._segment_batch_eager):
+            sync()
+            t1 = time.perf_counter()
+            segment(params, pem.base_B, carry, cfg, LAX_SMALL_STEPS)
+            sync()
+            walls.append(time.perf_counter() - t1)
+        record[f"graph_s_{dtype}"], record[f"eager_s_{dtype}"] = walls
+        log(f"[12 lax] {dtype}, {cfg.num_cells} cells, {cfg.ncharge} charge states, B={LAX_SMALL_BATCH}, "
+            f"{LAX_SMALL_STEPS} steps: CUDA graphs {walls[0]:.3f} s with their capture, eager {walls[1]:.3f} s")
+    log(f"[12 lax] done ({time.perf_counter() - t0:.2f} s)")
 
     # ---- 13. the full-width lax path: CoupledPEM at fidelity (4,2), B = 1024,
     # replayed graphs (monolithic, chunked) and the eager route, all equal bit for bit
@@ -744,46 +638,6 @@ def lax_phases(kstep_us: float) -> dict:
     return record
 
 
-def system_phase() -> dict:
-    """Phase 14: ``System.predict(use_model="best")`` on the pem_v0 SPT-100 JSON
-    configuration (Cathode -> Thruster -> Plume), the Thruster cut to
-    ``WRAPPER_DURATION``; its outputs against a direct ``hallthruster_jl`` call on
-    the same inputs."""
-    import torch
-
-    import hallthrusterpem_tpu_torch.models.thruster as thruster
-    from hallthrusterpem_tpu_torch.core.json_loader import load_system
-    from hallthrusterpem_tpu_torch.models.thruster import _kernels
-
-    dev, sync, batch, duration = torch.device("cuda"), torch.cuda.synchronize, SYSTEM_BATCH, WRAPPER_DURATION
-    t0 = time.perf_counter()
-    system = load_system("pem_v0_SPT-100.json", device=dev)
-    comp = system["Thruster"]
-    comp.model_kwargs["simulation"] = dict(comp.model_kwargs["simulation"], duration=duration)
-    comp.model_kwargs["postprocess"] = dict(comp.model_kwargs["postprocess"], average_start_time=0.5 * duration)
-    samples = system.sample_inputs(batch, generator=torch.Generator().manual_seed(14))
-    _kernels.reset_counts()
-    t1 = time.perf_counter()
-    out = system.predict(samples, use_model="best")
-    sync()
-    wall = time.perf_counter() - t1
-    launches = _kernels.launch_counts["kstep"]
-    assert launches > 0, _kernels.launch_counts
-    assert out["T"].device.type == dev.type and out["j_ion"].shape == (batch, 91)
-    direct = thruster.hallthruster_jl({n: out[n] for n in comp.input_names()},
-                                      model_fidelity=comp.model_fidelity, device=dev, **comp.model_kwargs)
-    sync()
-    for k in comp.output_names():
-        assert torch.equal(torch.isnan(out[k]), torch.isnan(direct[k])) and torch.equal(
-            torch.nan_to_num(out[k]), torch.nan_to_num(direct[k])), f"System output {k} differs"
-    n_ok = int(torch.isfinite(out["T"]).sum())
-    log(f"[14 System] pem_v0_SPT-100.json, Thruster duration {duration:g} s, B={batch}: "
-        f"Cathode -> Thruster -> Plume in {wall:.3f} s, kstep launches {launches}, finite {n_ok}/{batch} "
-        f"(the priors are wide: the guards reject rows outside the discharge's range); Thruster outputs equal "
-        f"a direct hallthruster_jl call ({time.perf_counter() - t0:.2f} s)")
-    return {"batch": batch, "wall_s": wall, "kstep_launches": launches, "finite": n_ok}
-
-
 def surrogate_phase() -> dict:
     """Phase 15: the surrogates on the card, trained on data the K-step kernel
     labels; returns the ``{"surrogate": ...}`` record."""
@@ -854,17 +708,17 @@ def surrogate_phase() -> dict:
     step = lambda: train_step(net, opt_state, xb, yb, mb, fb)
     step()
     step_ms = cuda_ms(step, 20, lead=True)
-    ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
+    b = bound(ops, n_bytes)
     rec["train"] = {"hidden": list(SURR_HIDDEN), "ensemble": K, "steps": SURR_STEPS, "batch": B,
                     "n_in": surr.n_in, "n_out": surr.n_out, "params": n_par, "wall_s": fit_s,
                     "ms_per_step": step_ms, "ops_per_step": ops, "bytes_per_step": n_bytes,
-                    "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                     "val_rmse": info["val_rmse"], "val_fail_acc": info["val_fail_acc"], "tf32": False}
     log(f"[15b train] MLPSurrogate {SURR_HIDDEN} x {K} members, {surr.n_in} inputs -> {surr.n_out} outputs + "
         f"fail logit, {n_par} parameters: fit of {SURR_STEPS} steps at batch {B} in {fit_s:.3f} s; "
         f"{step_ms:.3f} ms/step on the card (TF32 off), {ops:.3e} ops and {n_bytes:.3e} bytes a step -> bound "
-        f"{max(ops_ms, bytes_ms):.3f} ms (ops at 67 TFLOP/s float32 {ops_ms:.3f}, bytes {bytes_ms:.4f}), "
-        f"{step_ms / max(ops_ms, bytes_ms):.2f}x; val_rmse {info['val_rmse']:.4f}, "
+        f"{b['bound_ms']:.3f} ms (ops, float32 {b['ops_ms']:.3f}, bytes {b['bytes_ms']:.4f}), "
+        f"{step_ms / b['bound_ms']:.2f}x; val_rmse {info['val_rmse']:.4f}, "
         f"val_fail_acc {info['val_fail_acc']:.3f}")
     assert np.isfinite(info["val_rmse"])
     del net, opt_state, xb, yb, mb, fb
@@ -1262,7 +1116,6 @@ def parallel_phase(pem, inputs: dict, ref: dict, n_launch: int, kstep_ms: float)
 
     t0 = time.perf_counter()
     batch = len(inputs["V_a"])
-    duration_ms = pem.cfg.duration * 1e3
     ref_np = {k: v.cpu().numpy() for k, v in ref.items()}
 
     def unequal(out) -> list:
@@ -1272,46 +1125,31 @@ def parallel_phase(pem, inputs: dict, ref: dict, n_launch: int, kstep_ms: float)
         return [k for k in ref_np if got[k].dtype != ref_np[k].dtype
                 or not np.array_equal(got[k], ref_np[k], equal_nan=True)]
 
-    def sync_all(mesh):
-        for d in set(mesh.devices):
-            torch.cuda.synchronize(d)
-
     rec: dict = {"batch": batch, "duration_s": pem.cfg.duration}
 
-    # ---- (a) every card of the machine
+    # ---- (a) every card of the machine; (b) two shards on one card, then the plume
     mesh = make_mesh()
     _kernels.reset_counts()
-    t1 = time.perf_counter()
     out = BatchExecutor(mesh).run(pem, inputs)
-    sync_all(mesh)
-    wall = time.perf_counter() - t1
-    launches = _kernels.launch_counts["kstep"]
-    diff = unequal(out)
-    log(f"[17a every card] BatchExecutor(make_mesh()) over {mesh.n_devices} card(s), B={batch}: {wall:.3f} s "
-        f"({batch * duration_ms / wall:.2f} sim-ms/s), kstep launches {launches}; outputs that differ from "
-        f"phase 4 in any bit: {diff or 'none'}")
-    assert not diff, diff
-    assert launches == mesh.n_devices * n_launch, (launches, mesh.n_devices, n_launch)
-    rec["every_card"] = {"cards": mesh.n_devices, "wall_s": wall, "sim_ms_per_s": batch * duration_ms / wall,
-                         "kstep_launches": launches, "bit_equal": True}
-
-    # ---- (b) two shards on one card: simulate_batch_sharded, then the plume
-    two = Mesh([torch.device("cuda", 0)] * 2)
+    for d in set(mesh.devices):
+        torch.cuda.synchronize(d)
+    launches, diff = _kernels.launch_counts["kstep"], unequal(out)
+    log(f"[17a every card] BatchExecutor(make_mesh()) over {mesh.n_devices} card(s), B={batch}: kstep launches "
+        f"{launches}; outputs that differ from phase 4 in any bit: {diff or 'none'}")
+    assert not diff and launches == mesh.n_devices * n_launch, (diff, launches, mesh.n_devices, n_launch)
+    rec["every_card"] = {"cards": mesh.n_devices, "kstep_launches": launches, "bit_equal": True}
     params, v_cc = _coupled_pre(inputs, pem.cfg)
     _kernels.reset_counts()
-    t1 = time.perf_counter()
-    sol = simulate_batch_sharded(params, pem.base_B, pem.cfg, two)
+    sol = simulate_batch_sharded(params, pem.base_B, pem.cfg, Mesh([torch.device("cuda", 0)] * 2))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = _kernels.launch_counts["kstep"]
-    diff = unequal(_coupled_post(inputs, v_cc, sol, pem.sweep_radius, pem.cfg))
-    log(f"[17b two shards] simulate_batch_sharded on Mesh([cuda:0, cuda:0]), 2 x {batch // 2} rows: {wall:.3f} s "
-        f"({batch * duration_ms / wall:.2f} sim-ms/s), kstep launches {launches} (phase 4: {n_launch} a run); "
-        f"outputs that differ from phase 4 in any bit: {diff or 'none'}")
-    assert not diff, diff
-    assert launches == 2 * n_launch, (launches, n_launch)
-    rec["two_shards"] = {"wall_s": wall, "sim_ms_per_s": batch * duration_ms / wall, "kstep_launches": launches,
-                         "bit_equal": True}
+    launches, diff = _kernels.launch_counts["kstep"], unequal(_coupled_post(inputs, v_cc, sol, pem.sweep_radius,
+                                                                            pem.cfg))
+    log(f"[17b two shards] simulate_batch_sharded on Mesh([cuda:0, cuda:0]), 2 x {batch // 2} rows: kstep "
+        f"launches {launches} (phase 4: {n_launch} a run); outputs that differ from phase 4 in any bit: "
+        f"{diff or 'none'}")
+    assert not diff and launches == 2 * n_launch, (diff, launches, n_launch)
+    rec["two_shards"] = {"kstep_launches": launches, "bit_equal": True}
+    del out, sol, params, v_cc
 
     # ---- (c) two processes on the card, gloo over localhost
     out_dir = Path("build") / "parallel"
@@ -1357,6 +1195,7 @@ def parallel_phase(pem, inputs: dict, ref: dict, n_launch: int, kstep_ms: float)
     # ---- (d) the host's time per kstep launch, with 1 and 2 threads enqueuing
     K = fs.INNER_STEPS
     half = batch // 2
+    params, _ = _coupled_pre(inputs, pem.cfg)
     carries = [fs.init_carry({k: v[i * half:(i + 1) * half].contiguous() for k, v in params.items()},
                              pem.base_B, pem.cfg) for i in range(2)]
 
@@ -1450,17 +1289,18 @@ def workflow_phase(thruster_inputs: dict, tree_kw: dict) -> tuple:
         launch = lambda block: block(carry[1], carry[2], carry[3], carry[0], 0, K, cfg, physics)
         ms = cuda_ms(lambda: launch(fs.kstep), 20, lead=True)
         plain_ms = cuda_ms(lambda: launch(fs.kstep_plain), 1)
-        bound = kstep_bound(fs, _kernels, carry, cfg, physics)
+        least = kstep_bound(fs, _kernels, carry, cfg)
         log(f"[18a {name}] fidelity {fid} ({cfg.num_cells} cells, {fs.lanes_for(cfg)} lanes), B={WORKFLOW_BATCH}: "
             f"1 launch (K={K}) vs {K} plain steps, max scaled error {err:.3e} (tolerance {STATE_RTOL:g}), max "
             f"absolute error {err_abs:.3e} over {n_arrays} arrays; {ms:.3f} ms/launch, plain {plain_ms:.1f} ms, "
-            f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} ({ms / bound['bound_ms']:.2f}x)")
+            f"bound {least['bound_ms']:.4f} ms by {least['bound_by']} ({ms / least['bound_ms']:.2f}x; "
+            f"{least['ops_per_step'] / WORKFLOW_BATCH:.0f} ops a row-step)")
         assert err < STATE_RTOL, (name, err)
         entries[fid] = {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
                         "launches": launches[fid], "launches_install_solver": launches[fid],
                         "max_abs_err": err_abs, "max_scaled_err": err, "scaled_err_tolerance": STATE_RTOL,
-                        "batch": WORKFLOW_BATCH, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-                        "bound_by": bound["bound_by"], "library_ms": None}
+                        "batch": WORKFLOW_BATCH, "ms": ms, "plain_ms": plain_ms, "bound_ms": least["bound_ms"],
+                        "bound_by": least["bound_by"], "library_ms": None}
         del pem, params, carry
 
     # ---- (b) validate_solver at its own settings: kstep<1,1> at 100 cells, B = 10
@@ -1909,10 +1749,9 @@ def parity_sweep_phase() -> dict:
     return rec
 
 
-def bench_phase(kstep_ms: float) -> dict:
-    """Phase 21: ``python -m hallthrusterpem_tpu_torch.bench`` with its defaults
-    as a child process; ``kstep_ms`` is phase 6's ms a launch. Returns the
-    ``{"bench": ...}`` record."""
+def bench_child() -> dict:
+    """Phase 4's ``python -m hallthrusterpem_tpu_torch.bench`` with its defaults
+    as a child process: its line, finite rows and launches a timed run."""
     import os
 
     import torch
@@ -1925,138 +1764,64 @@ def bench_phase(kstep_ms: float) -> dict:
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     proc = subprocess.run([sys.executable, "-m", "hallthrusterpem_tpu_torch.bench"], capture_output=True, text=True,
                           timeout=BENCH_TIMEOUT, env=env, cwd=Path(__file__).resolve().parent)
-    wall = time.perf_counter() - t0
-    for line in proc.stderr.strip().splitlines()[-5:]:
-        log(f"[21 bench] stderr: {line}")
-    assert proc.returncode == 0, f"the bench exited with {proc.returncode}: {proc.stdout[-2000:]}"
+    assert proc.returncode == 0, f"the bench exited with {proc.returncode}: {proc.stderr[-2000:]}"
     line = json.loads(proc.stdout.strip().splitlines()[-1])
     finite = re.search(r"(\d+)/(\d+) finite", proc.stderr)
     runs = re.search(r"(\d+) steps, kstep launches per timed run \[(\d+), (\d+)\]", proc.stderr)
     assert finite and runs, proc.stderr[-2000:]
-    n_ok, batch = int(finite.group(1)), int(finite.group(2))
-    steps, launches = int(runs.group(1)), [int(runs.group(2)), int(runs.group(3))]
-    duration = 5e-4  # the bench's default
-    assert steps == CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=duration, device="cuda").cfg.num_steps
-    expect = math.ceil(steps / fs.INNER_STEPS)
-    predicted = batch * duration * 1e3 / (expect * kstep_ms / 1e3)
-    ratio = line["value"] / predicted if line["value"] is not None else float("nan")
-    log(f"[21 bench] {json.dumps(line)}; {n_ok}/{batch} rows finite, {steps} steps, kstep launches per timed "
-        f"run {launches} (ceil(steps / {fs.INNER_STEPS}) = {expect}); phase 6's {kstep_ms:.4f} ms a launch "
-        f"predicts {predicted:.3f} sim-ms/s: measured / predicted {ratio:.4f} (gate {BENCH_GATE}); the child "
-        f"process took {wall:.2f} s")
+    n_ok, batch, steps = int(finite.group(1)), int(finite.group(2)), int(runs.group(1))
+    launches = [int(runs.group(2)), int(runs.group(3))]
+    expect = math.ceil(CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=5e-4,  # the bench's default
+                                  device="cuda").cfg.num_steps / fs.INNER_STEPS)
+    log(f"[4 bench] {json.dumps(line)}; {n_ok}/{batch} rows finite, {steps} steps, kstep launches per timed run "
+        f"{launches} (expected {expect}) ({time.perf_counter() - t0:.2f} s)")
     assert list(line) == ["metric", "value", "unit", "vs_baseline"], line
     assert line["metric"] == "coupled_pem_sim_ms_per_sec_per_chip" and math.isfinite(line["value"]), line
     assert batch == 1024 and n_ok >= BENCH_FINITE, (n_ok, batch)
     assert launches == [expect, expect], (launches, expect)
-    assert BENCH_GATE[0] <= ratio <= BENCH_GATE[1], ratio
-    return {"line": line, "finite_rows": n_ok, "batch": batch, "steps": steps, "kstep_launches": launches,
-            "predicted_sim_ms_per_s": predicted, "measured_over_predicted": ratio, "child_wall_s": wall}
+    return {"line": line, "finite_rows": n_ok, "steps": steps, "kstep_launches": launches[0]}
 
 
-def plume_inputs(rows: int, case: str, seed: int) -> dict:
-    """The plume's System inputs for ``rows`` rows on the card: drawn from the
-    pem_v0 SPT-100 distributions, with I_B0 and T as the Thruster gives them and
-    every eighth row NaN in both (a row the Thruster masked). ``case``:
-    ``float32`` or ``float64`` for every input, or ``mixed``: I_B0 and T in
-    float64 and the rest float32, as the Thruster gives them once a row is
-    masked."""
-    import numpy as np
+def system_paths() -> dict:
+    """Phase 9's System paths, one untimed call each with its launches counted:
+    ``System.predict(use_model="best")`` on the pem_v0 SPT-100 JSON
+    configuration, the Thruster cut to ``WRAPPER_DURATION``, against a direct
+    ``hallthruster_jl`` call on the same inputs; and the H9-class system at one
+    call of its cell's traffic, its first launch against the plain version."""
     import torch
 
-    rng = np.random.default_rng(seed)
-    x = {"P_b": 10 ** rng.uniform(-8, -4, rows), "c0": rng.uniform(0, 1, rows),
-         "c1": rng.uniform(0.1, 1, rows), "c2": rng.uniform(-15, 15, rows),
-         "c3": rng.uniform(0.2, np.pi / 2, rows), "c4": 10 ** rng.uniform(18, 22, rows),
-         "c5": 10 ** rng.uniform(14, 18, rows), "sigma_cex": rng.uniform(51e-20, 58e-20, rows),
-         "I_B0": rng.uniform(2, 5, rows), "T": rng.uniform(0.04, 0.1, rows)}
-    x["I_B0"][::8] = x["T"][::8] = np.nan
-    wide = ("I_B0", "T") if case == "mixed" else ()
-    dtype = torch.float64 if case == "float64" else torch.float32
-    return {k: torch.as_tensor(v, dtype=torch.float64 if k in wide else dtype, device="cuda")
-            for k, v in x.items()}
-
-
-def plume_phase() -> dict:
-    """Phase 22: the plume's kernel against its plain version and timed, at
-    each of ``PLUME_ROWS``; returns its entry of the kernels line."""
-    import torch
-
-    from hallthrusterpem_tpu_torch.models import plume
-
-    t0 = time.perf_counter()
-    rec = {"name": "plume", "route": "cuda", "source": PLUME_SOURCE,
-           "replaces": "none: the plume's eager version made ~1,300 launches a call",
-           "scaled_err_tolerance": PLUME_TOL, "div_angle_tolerance_float32": PLUME_DIV_TOL_F32,
-           "library_ms": None, "rows": {}}
-    for rows in PLUME_ROWS:
-        for case in ("float32", "float64", "mixed"):
-            x = plume_inputs(rows, case, seed=rows)
-            plume.current_density(x)  # the grid on this card
-            plume.reset_counts()
-            got = plume.current_density(x)
-            ref = plume.current_density_plain(x)
-            torch.cuda.synchronize()
-            assert plume.launch_counts["plume"] == 1, plume.launch_counts
-            errs = {}
-            assert set(got) == set(ref) and "T_c" in ref, (sorted(got), sorted(ref))
-            for k, r in ref.items():
-                assert got[k].dtype == r.dtype and got[k].shape == r.shape, (rows, case, k, got[k].dtype, r.dtype)
-                fin = torch.isfinite(r)
-                assert torch.equal(torch.isfinite(got[k]), fin), (rows, case, k)
-                errs[k] = scaled_err(got[k][fin], r[fin])
-                tol = PLUME_DIV_TOL_F32 if (k == "div_angle" and r.dtype == torch.float32) else PLUME_TOL
-                assert errs[k] < tol, (rows, case, k, errs[k])
-            label = f"{rows}_{case}"
-            entry = {"max_scaled_err": errs, "T_c_dtype": str(got["T_c"].dtype)}
-            if case == "float32":
-                ms = cuda_ms(lambda: plume.current_density(x), PLUME_REPS, lead=True)
-                torch.cuda._sleep(LEAD_CYCLES)
-                t1 = time.perf_counter()
-                for _ in range(PLUME_REPS):
-                    plume.current_density(x)
-                host_us = (time.perf_counter() - t1) / PLUME_REPS * 1e6
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                for _ in range(5):
-                    plume.current_density_plain(x)
-                torch.cuda.synchronize()
-                plain_ms = (time.perf_counter() - t1) / 5 * 1e3
-                ops = count_ops(lambda: plume.current_density_plain(x))
-                n_bytes = 4 * (rows * (10 + 91 + 2) + 4 * 91)  # inputs, j_ion, div_angle and T_c, the grid
-                ops_ms, bytes_ms = ops / H100_F32_FLOPS * 1e3, n_bytes / H100_BYTES_PER_S * 1e3
-                entry.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
-                             plain_operators=count_dispatches(lambda: plume.current_density_plain(x)),
-                             ops=ops, bytes=n_bytes, bound_ms=max(ops_ms, bytes_ms),
-                             bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-                log(f"[22 plume] B={rows}: {ms * 1e3:.2f} us a launch on the card (back to back), "
-                    f"{host_us:.1f} us of host time a call, bound {entry['bound_ms'] * 1e3:.3f} us "
-                    f"({entry['bound_by']}: {ops:.3e} ops, {n_bytes:.3e} bytes); plain {plain_ms:.2f} ms "
-                    f"a call, {entry['plain_operators']} operators")
-            log(f"[22 plume] B={rows} {case}: 1 launch, T_c {got['T_c'].dtype}, max scaled error "
-                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-            rec["rows"][label] = entry
-    main_row = rec["rows"][f"{PLUME_ROWS[-1]}_float32"]
-    rec.update({k: main_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, launches=1)
-    log(f"[22 plume] done ({time.perf_counter() - t0:.2f} s)")
-    return rec
-
-
-def h9_phase() -> dict:
-    """Phase 23: the H9-class system through ``System.predict`` at one call of
-    the benchmark's facility sweep (see the module's note)."""
-    import numpy as np
-    import torch
-
+    import hallthrusterpem_tpu_torch.models.thruster as thruster
     from hallthrusterpem_tpu_torch import tracing
     from hallthrusterpem_tpu_torch.core.json_loader import load_system
     from hallthrusterpem_tpu_torch.models.thruster import _kernels
     from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
     from pembench.traffic import Traffic, load_mix
 
+    dev, batch, duration = torch.device("cuda"), SYSTEM_BATCH, WRAPPER_DURATION
     t0 = time.perf_counter()
-    dev, path = torch.device("cuda"), Path(__file__).resolve().parent / H9_CONFIG
+    system = load_system("pem_v0_SPT-100.json", device=dev)
+    comp = system["Thruster"]
+    comp.model_kwargs["simulation"] = dict(comp.model_kwargs["simulation"], duration=duration)
+    comp.model_kwargs["postprocess"] = dict(comp.model_kwargs["postprocess"], average_start_time=0.5 * duration)
+    samples = system.sample_inputs(batch, generator=torch.Generator().manual_seed(14))
+    _kernels.reset_counts()
+    out = system.predict(samples, use_model="best")
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts["kstep"]
+    assert launches > 0 and out["j_ion"].shape == (batch, 91), _kernels.launch_counts
+    direct = thruster.hallthruster_jl({n: out[n] for n in comp.input_names()},
+                                      model_fidelity=comp.model_fidelity, device=dev, **comp.model_kwargs)
+    for k in comp.output_names():
+        assert torch.equal(torch.isnan(out[k]), torch.isnan(direct[k])) and torch.equal(
+            torch.nan_to_num(out[k]), torch.nan_to_num(direct[k])), f"System output {k} differs"
+    log(f"[9b System] pem_v0_SPT-100.json, Thruster duration {duration:g} s, B={batch}: Cathode -> Thruster -> "
+        f"Plume, kstep launches {launches}, finite {int(torch.isfinite(out['T']).sum())}/{batch}; Thruster outputs "
+        f"equal a direct hallthruster_jl call ({time.perf_counter() - t0:.2f} s)")
+    rec = {"spt100": {"batch": batch, "kstep_launches": launches}}
+
+    t0 = time.perf_counter()
+    path = Path(__file__).resolve().parent / H9_CONFIG
     doc = json.loads(path.read_text())
-    system = load_system(path, device=dev)
     rows = Traffic(doc, load_mix(H9_MIX), H9_SEED).call(0)
     first, launch = {}, fs.kstep
 
@@ -2074,125 +1839,97 @@ def h9_phase() -> dict:
     before = dict(tracing.counts)
     fs.kstep = watched
     try:
-        out = system.predict(rows, use_model=doc["use_model"])
+        out = load_system(path, device=dev).predict(rows, use_model=doc["use_model"])
         torch.cuda.synchronize()
     finally:
         fs.kstep = launch
     change = {k: tracing.counts[k] - before[k] for k in tracing.counts}
     cfg, flags, (err, abs_err, n_arrays) = first["cfg"], first["flags"], first["errs"]
-    launches, expected = _kernels.launch_counts["kstep"], math.ceil(cfg.num_steps / first["K"])
-    kname = f"kstep<{cfg.ncharge},{cfg.neutral_groups}>"
+    launches, expected, n = _kernels.launch_counts["kstep"], math.ceil(cfg.num_steps / first["K"]), len(rows["P_b"])
     branch = {"ion_wall": flags.ion_wall, "solve_plume": flags.solve_plume, "div_corr": flags.div_corr,
               "trace": flags.trace, "circuit_max": first["circuit"]}
-    assert kname == "kstep<3,1>" and cfg.num_cells == 200 and cfg.anom_model == "GaussianBohm", (kname, cfg)
-    assert cfg.pressure_shift == "SimpleLogisticShift", cfg.pressure_shift
+    log(f"[9c H9] {H9_CONFIG}, {n} rows ({H9_MIX}, seed {H9_SEED}): kstep<{cfg.ncharge},{cfg.neutral_groups}>, "
+        f"{cfg.num_cells} cells, {cfg.num_steps} steps, {launches} launches (expected {expected}); flags {branch}; "
+        f"first launch vs {first['K']} plain steps: max scaled error {err:.3e} (tolerance {STATE_RTOL:g}), max "
+        f"absolute {abs_err:.3e} over {n_arrays} arrays; finite {int(torch.isfinite(out['T']).sum())}/{n}; "
+        f"counters {change} ({time.perf_counter() - t0:.2f} s)")
+    assert (cfg.ncharge, cfg.neutral_groups, cfg.num_cells, cfg.anom_model, cfg.pressure_shift) == (
+        3, 1, 200, "GaussianBohm", "SimpleLogisticShift"), cfg
     assert branch == {"ion_wall": 0, "solve_plume": 0, "div_corr": 0, "trace": 1, "circuit_max": 0.0}, branch
-    assert launches == expected, (launches, expected)
-    assert err < STATE_RTOL, err
-    n = len(rows["P_b"])
+    assert launches == expected and err < STATE_RTOL, (launches, expected, err)
     assert change["gaussian_bohm_rows"] == change["plume_kernel_rows"] == change["rows_attempted"] == n, change
-    finite = torch.isfinite(out["T"]).cpu().numpy()
-    by_pressure = {f"{p:g}": float(finite[rows["P_b"] == p].mean()) for p in np.unique(rows["P_b"])}
-    torch.cuda.reset_peak_memory_stats()
-    t1 = time.perf_counter()
-    system.predict(rows, use_model=doc["use_model"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    peak = int(torch.cuda.max_memory_allocated())
-    log(f"[23 H9] {H9_CONFIG}, {n} rows ({H9_MIX}, seed {H9_SEED}): {kname}, {cfg.num_cells} cells, dt "
-        f"{cfg.dt:.4e} s, {cfg.num_steps} steps, {launches} launches (expected {expected}); flags {branch}; first "
-        f"launch vs {first['K']} plain steps: max scaled error {err:.3e} (tolerance {STATE_RTOL:g}), max absolute "
-        f"{abs_err:.3e} over {n_arrays} arrays; finite share by P_b {by_pressure}; counters {change}; a second call "
-        f"{wall:.3f} s, peak {peak / 1e6:.1f} MB ({time.perf_counter() - t0:.2f} s)")
-    return {"rows": n, "kernel": kname, "dt": cfg.dt, "steps": cfg.num_steps, "launches": launches,
-            "flags": branch, "first_launch_max_scaled_err": err, "first_launch_max_abs_err": abs_err,
-            "finite_share_by_P_b": by_pressure, "counters": change, "wall_s": wall, "peak_bytes": peak}
+    rec["h9"] = {"rows": n, "kstep_launches": launches, "flags": branch, "first_launch_max_scaled_err": err,
+                 "first_launch_max_abs_err": abs_err, "counters": change}
+    return rec
 
 
-def width_phase() -> dict:
-    """Phase 24: ``kstep<3,1>`` at fidelity (2,2) on its 224 lanes (the instance
-    bounded at 224 threads) against the same launches forced onto 256 lanes
-    (the instance bounded at 256, which every width ran before the layout was
-    sized to the warp): the outputs on lanes 0..NC-1 and every accumulator
-    bit for bit after one launch; ms a K = 50 launch at each batch of
-    ``WIDTH_BATCHES``, back to back after the one spin, each width timed twice
-    (``WIDTH_ORDER``) from the same carry; each instance's registers and spill
-    bytes (ptxas) and its barriers and static instructions a warp-step (SASS),
-    ``kstep<1,1>``'s at 128 lanes beside them; then where the warps of four
-    co-resident 224-thread blocks sit on an SM's four schedulers."""
-    import ctypes
-
+def plume_inputs(rows: int, seed: int) -> dict:
+    """The plume's System inputs for ``rows`` rows on the card, float32: drawn
+    from the pem_v0 SPT-100 distributions, with I_B0 and T as the Thruster gives
+    them and every eighth row NaN in both (a row the Thruster masked)."""
+    import numpy as np
     import torch
 
-    from hallthrusterpem_tpu_torch import kernel_build
-    from hallthrusterpem_tpu_torch.models.thruster import _kernels
-    from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
-    from hallthrusterpem_tpu_torch.pem import CoupledPEM, _coupled_pre, default_coupled_inputs
+    rng = np.random.default_rng(seed)
+    x = {"P_b": 10 ** rng.uniform(-8, -4, rows), "c0": rng.uniform(0, 1, rows),
+         "c1": rng.uniform(0.1, 1, rows), "c2": rng.uniform(-15, 15, rows),
+         "c3": rng.uniform(0.2, np.pi / 2, rows), "c4": 10 ** rng.uniform(18, 22, rows),
+         "c5": 10 ** rng.uniform(14, 18, rows), "sigma_cex": rng.uniform(51e-20, 58e-20, rows),
+         "I_B0": rng.uniform(2, 5, rows), "T": rng.uniform(0.04, 0.1, rows)}
+    x["I_B0"][::8] = x["T"][::8] = np.nan
+    return {k: torch.as_tensor(v, dtype=torch.float32, device="cuda") for k, v in x.items()}
+
+
+def plume_phase() -> dict:
+    """Phase 22: the plume's kernel against its plain version and timed, at
+    each of ``PLUME_ROWS``; returns its entry of the kernels line."""
+    import torch
+
+    from hallthrusterpem_tpu_torch.models import plume
+    from pembench.work import count_ops
 
     t0 = time.perf_counter()
-    dev = torch.device("cuda")
-    kernel_build.build_all()
-    _kernels.load_libraries()
-    info = _kernels.build_info["kstep"]
-    pem = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-5, device=dev)
-    low = CoupledPEM(thruster="SPT-100", model_fidelity=(0, 0), duration=2e-5, device=dev)
-    cfg, K, narrow = pem.cfg, fs.INNER_STEPS, fs.lanes_for(pem.cfg)
-    assert (cfg.ncharge, cfg.neutral_groups, narrow, fs.lanes_for(low.cfg)) == (3, 1, 224, 128)
-    code = {}
-    for label, c, lanes in (("kstep<3,1> on 224", cfg, 224), ("kstep<3,1> on 256", cfg, 256),
-                            ("kstep<1,1> on 128", low.cfg, 128)):
-        mangled = kstep_mangled(c.ncharge, c.neutral_groups, lanes)
-        sass = kernel_sass(info["path"], mangled)
-        barriers, insns = step_loop_counts(sass, _kernels.kernel_params(c).n_levels)
-        code[label] = dict(ptxas_usage(info["log"], mangled), barriers_per_step=barriers,
-                           instructions_per_warp_step=insns, sass_instructions=len(sass))
-        log(f"[24 width] {label}: {code[label]}")
-
-    widen = lambda x, lanes: torch.nn.functional.pad(x, (0, lanes - x.shape[-1])).contiguous()
-    ms, equal = {}, {}
-    for batch, reps in WIDTH_BATCHES.items():
-        x = default_coupled_inputs(batch, torch.Generator().manual_seed(24), spread=0.08, device=dev)
-        params, _ = _coupled_pre(x, cfg)
-        consts, state, prof, sacc = fs.init_carry(params, pem.base_B, cfg)
-        after = {}
-        for lanes in WIDTH_ORDER:
-            c = dict(consts, nu_anom=widen(consts["nu_anom"], lanes), omega_ce=widen(consts["omega_ce"], lanes))
-            carry = [widen(state, lanes), widen(prof, lanes), sacc.clone()]
-            launch = lambda: _kernels.kstep_cuda(*carry, c, 0, K, cfg)
-            launch()
-            torch.cuda.synchronize()
-            after.setdefault(lanes, [t[..., :cfg.nc].clone() for t in carry[:2]] + [carry[2].clone()])
-            ms.setdefault(batch, {}).setdefault(lanes, []).append(cuda_ms(launch, reps, lead=True))
-        equal[batch] = all(torch.equal(a, b) for a, b in zip(after[224], after[256]))
-        t = {k: min(v) for k, v in ms[batch].items()}
-        log(f"[24 width] B={batch}, K={K}: {t[224]:.4f} ms a launch on 224 lanes, {t[256]:.4f} on 256 "
-            f"({t[224] / t[256] - 1:+.2%}; every timing {ms[batch]}); lanes 0..NC-1 and the accumulators "
-            f"after one launch equal bit for bit: {equal[batch]}")
-        assert equal[batch], batch
-        del params, consts, state, prof, sacc, carry, after
-
-    src = Path("build") / "probe" / "probe.cu"
-    src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(PROBE_SOURCE)
-    lib_path = src.with_suffix(".so")
-    subprocess.run([shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", *kernel_build.NVCC_FLAGS,
-                    "-o", str(lib_path), str(src)], check=True, timeout=300, capture_output=True)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = 4 * n_sm
-    out = (ctypes.c_int * (3 * 7 * blocks))()
-    rc = ctypes.CDLL(str(lib_path)).probe_run(out, blocks, ctypes.c_longlong(PROBE_SPIN_CYCLES))
-    assert rc == 0, rc
-    per_sm = collections.defaultdict(list)
-    for w in range(7 * blocks):
-        per_sm[out[3 * w]].append(out[3 * w + 1])
-    splits = collections.Counter(
-        tuple(sorted(collections.Counter(slot % 4 for slot in slots).values(), reverse=True))
-        for slots in per_sm.values())
-    log(f"[24 width] probe: {blocks} blocks of 224 threads over {len(per_sm)} SMs, warps a scheduler (slot mod 4) "
-        f"on each SM -> SMs: {dict(splits)} ({time.perf_counter() - t0:.2f} s)")
-    return {"code": code, "ms": {str(b): {str(k): v for k, v in t.items()} for b, t in ms.items()},
-            "equal_bits": {str(b): v for b, v in equal.items()},
-            "scheduler_splits": {"/".join(map(str, k)): v for k, v in splits.items()}}
+    rec = {"name": "plume", "route": "cuda", "source": PLUME_SOURCE,
+           "replaces": "none: the plume's eager version made ~1,300 launches a call",
+           "scaled_err_tolerance": PLUME_TOL, "div_angle_tolerance": PLUME_DIV_TOL_F32, "library_ms": None,
+           "rows": {}}
+    for rows in PLUME_ROWS:
+        x = plume_inputs(rows, seed=rows)
+        got, ref = plume.current_density(x), plume.current_density_plain(x)  # the first: the grid on this card
+        assert set(got) == set(ref) and "T_c" in ref, (sorted(got), sorted(ref))
+        errs = {}
+        for k, r in ref.items():
+            fin = torch.isfinite(r)
+            assert got[k].dtype == r.dtype and torch.equal(torch.isfinite(got[k]), fin), (rows, k, got[k].dtype)
+            errs[k] = scaled_err(got[k][fin], r[fin])
+            assert errs[k] < (PLUME_DIV_TOL_F32 if k == "div_angle" else PLUME_TOL), (rows, k, errs[k])
+        plume.reset_counts()
+        ms = cuda_ms(lambda: plume.current_density(x), PLUME_REPS, lead=True)
+        assert plume.launch_counts["plume"] == PLUME_REPS, plume.launch_counts
+        torch.cuda._sleep(LEAD_CYCLES)
+        t1 = time.perf_counter()
+        for _ in range(PLUME_REPS):
+            plume.current_density(x)
+        host_us = (time.perf_counter() - t1) / PLUME_REPS * 1e6
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            plume.current_density_plain(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) / 5 * 1e3
+        n_bytes = 4 * (rows * (10 + 91 + 2) + 4 * 91)  # inputs, j_ion, div_angle and T_c, the grid
+        entry = dict(bound(count_ops(lambda: plume.current_density_plain(x)), n_bytes), max_scaled_err=errs,
+                     ms=ms, host_us=host_us,
+                     plain_ms=plain_ms, plain_operators=count_dispatches(lambda: plume.current_density_plain(x)))
+        log(f"[22 plume] B={rows}: {ms * 1e3:.2f} us a launch on the card (back to back), "
+            f"{host_us:.1f} us of host time a call, bound {entry['bound_ms'] * 1e3:.3f} us "
+            f"({entry['bound_by']}: {entry['ops']:.3e} ops, {n_bytes:.3e} bytes); plain {plain_ms:.2f} ms "
+            f"a call, {entry['plain_operators']} operators; against it max scaled error "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        rec["rows"][rows] = entry
+    rec.update({k: rec["rows"][PLUME_ROWS[-1]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, launches=1)
+    log(f"[22 plume] done ({time.perf_counter() - t0:.2f} s)")
+    return rec
 
 
 def main() -> int:
@@ -2209,18 +1946,13 @@ def main() -> int:
 
     import hallthrusterpem_tpu_torch.models.thruster as thruster
     from hallthrusterpem_tpu_torch import cuda_graph, kernel_build
-    from hallthrusterpem_tpu_torch.constants import FUNDAMENTAL_CHARGE
     from hallthrusterpem_tpu_torch.core.json_loader import load_system
     from hallthrusterpem_tpu_torch.models.cathode import cathode_coupling
     from hallthrusterpem_tpu_torch.models.thruster import _kernels
     from hallthrusterpem_tpu_torch.models.thruster import fused_step as fs
     from hallthrusterpem_tpu_torch.models.thruster.one_step import simulate_batch_step
-    from hallthrusterpem_tpu_torch.pem import (
-        CoupledPEM,
-        _coupled_post,
-        _coupled_pre,
-        default_coupled_inputs,
-    )
+    from hallthrusterpem_tpu_torch.pem import CoupledPEM, _coupled_pre, default_coupled_inputs
+    from pembench.work import PEAKS, count_ops
 
     # ---- 1. device
     t0 = time.perf_counter()
@@ -2228,6 +1960,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     smi_line = smi.splitlines()[0].strip()
+    assert kind in PEAKS, f"{kind}: no published rates in pembench/work.py's PEAKS, so no bound"
     log(f"[1 device] {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi_line} "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -2256,90 +1989,22 @@ def main() -> int:
         f"in all: " + ", ".join(f"{k} {n}" for k, n in opcodes.most_common(12))
         + f" ({time.perf_counter() - t0:.2f} s)")
 
-    # ---- 3. kernel vs plain version on the card, at the main path's shapes
-    t0 = time.perf_counter()
-    batch = 1024
-    cfg = dataclasses.replace(pem.cfg, average_start_time=0.0)  # accumulate from step 0
-    gen = torch.Generator().manual_seed(7)
-    params, _ = _coupled_pre(default_coupled_inputs(batch, gen, spread=0.08, device=dev), cfg)
-    consts, state0, prof0, sacc0 = fs.init_carry(params, pem.base_B, cfg)
-    physics = fs.Physics(cfg)
-    K = fs.INNER_STEPS
-
-    def run(block, n_launch):
-        s, p, a = state0.clone(), prof0.clone(), sacc0.clone()
-        for j in range(n_launch):
-            block(s, p, a, consts, j * K, K, cfg, physics)
-        torch.cuda.synchronize()
-        return s, p, a
-
-    ks, kp, ka = run(fs.kstep, 1)
-    ps, pp, pa = run(fs.kstep_plain, 1)
-    for name, x in (("state", ks), ("prof", kp), ("sacc", ka)):
-        assert torch.isfinite(x).all(), f"kernel {name} not finite"
-    max_err, max_abs, n_arrays = carry_errs(fs, (ks, kp, ka), (ps, pp, pa))
-    log(f"[3 parity] 1 launch (K={K}) vs {K} plain steps, B={batch}: max scaled error {max_err:.3e} "
-        f"(tolerance {STATE_RTOL:g}), max absolute error {max_abs:.3e} over {n_arrays} arrays")
-    assert max_err < STATE_RTOL, max_err
-    ks, kp, ka = run(fs.kstep, 20)
-    ps, pp, pa = run(fs.kstep_plain, 20)
-    acc_err = max(float(((ka[:, j] - pa[:, j]).abs() / pa[:, j].abs().clamp_min(1e-30)).max())
-                  for j in (fs.A_THRUST, fs.A_ID, fs.A_ID2, fs.A_IB0, fs.A_MDOT, fs.A_UEXIT))
-    assert torch.equal(ka[:, fs.A_FAILED], pa[:, fs.A_FAILED])
-    log(f"[3 parity] 20 launches vs {20 * K} plain steps: accumulators max relative error "
-        f"{acc_err:.3e} (tolerance {QOI_RTOL:g}) ({time.perf_counter() - t0:.2f} s)")
-    assert acc_err < QOI_RTOL
-    # free phase 3's B = 1024 copies so phase 4's peak memory is the main path's own
-    del params, consts, state0, prof0, sacc0, ks, kp, ka, ps, pp, pa
-
     # ---- 4. main path: CoupledPEM at fidelity (2,2), B = 1024
     t0 = time.perf_counter()
-    n_launch = math.ceil(pem.cfg.num_steps / fs.INNER_STEPS)
-    torch.cuda.reset_peak_memory_stats()
+    batch, K = 1024, fs.INNER_STEPS
+    n_launch = math.ceil(pem.cfg.num_steps / K)
+    main_inputs = default_coupled_inputs(batch, torch.Generator().manual_seed(1), spread=0.08, device=dev)
     _kernels.reset_counts()
-    out = pem(default_coupled_inputs(batch, torch.Generator().manual_seed(42), spread=0.08, device=dev))
+    main_out = pem(main_inputs)  # phase 17 holds the multi-device path to these, bit for bit
     torch.cuda.synchronize()
-    walls = []
-    for trial in range(2):
-        inp = default_coupled_inputs(batch, torch.Generator().manual_seed(trial), spread=0.08, device=dev)
-        t1 = time.perf_counter()
-        out = pem(inp)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t1)
     launches = dict(_kernels.launch_counts)
-    main_inputs, main_out = inp, out  # phase 17 holds the multi-device path to these, bit for bit
-    wall = min(walls)
-    thrust = out["T"]
-    n_ok = int(torch.isfinite(thrust).sum())
-    sim_ms_per_s = batch * pem.cfg.duration * 1e3 / wall
-    log(f"[4 main path] {pem.cfg.num_steps} steps x B={batch}: walls {walls[0]:.3f} / {walls[1]:.3f} s, "
-        f"{sim_ms_per_s:.2f} sim-ms/s, {wall / pem.cfg.num_steps * 1e6:.2f} us/step, "
-        f"finite {n_ok}/{batch}, mean T {float(thrust[torch.isfinite(thrust)].mean()):.5f} N, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+    n_ok = int(torch.isfinite(main_out["T"]).sum())
+    log(f"[4 main path] {pem.cfg.num_steps} steps x B={batch}: finite {n_ok}/{batch}, "
         f"kstep launches {launches['kstep']} ({time.perf_counter() - t0:.2f} s)")
-    assert launches["kstep"] == 3 * n_launch, (launches, n_launch)
+    assert launches["kstep"] == n_launch, (launches, n_launch)
     assert n_ok >= batch - 10, n_ok
-    for k in ("T", "I_d", "I_B0", "j_ion"):
-        assert out[k].shape[0] == batch
-    assert out["j_ion"].shape == (batch, 91) and out["u_ion"].shape == (batch, pem.cfg.nc)
-
-    # ---- 5. coupled outputs vs the plain version: B = 16, 914 steps
-    t0 = time.perf_counter()
-    small = CoupledPEM(thruster="SPT-100", model_fidelity=(2, 2), duration=2e-6, device=dev)
-    inp = default_coupled_inputs(16, torch.Generator().manual_seed(3), spread=0.08, device=dev)
-    got = small(inp)
-    sp, v_cc = _coupled_pre(inp, small.cfg)
-    ref = _coupled_post(inp, v_cc, fs.simulate_batch_multi(sp, small.base_B, small.cfg,
-                                                           block=fs.kstep_plain),
-                        small.sweep_radius, small.cfg)
-    torch.cuda.synchronize()
-    assert torch.equal(torch.isfinite(got["T"]), torch.isfinite(ref["T"]))
-    ok = torch.isfinite(ref["T"])
-    qoi_err = max(float(((got[k] - ref[k]).abs() / ref[k].abs())[ok].max()) for k in ("T", "I_d", "I_B0"))
-    log(f"[5 coupled parity] B=16, {small.cfg.num_steps} steps: T/I_d/I_B0 max relative error "
-        f"{qoi_err:.3e} (tolerance {QOI_RTOL:g}), finite {int(ok.sum())}/16 "
-        f"({time.perf_counter() - t0:.2f} s)")
-    assert qoi_err < QOI_RTOL and int(ok.sum()) > 0
+    assert main_out["j_ion"].shape == (batch, 91) and main_out["u_ion"].shape == (batch, pem.cfg.nc)
+    bench = bench_child()
 
     # ---- 6. the kernel's time, its plain version's and its bound, at B = 1024, K = 50
     t0 = time.perf_counter()
@@ -2349,15 +2014,14 @@ def main() -> int:
     physics = fs.Physics(pem.cfg)
     launch = lambda block: block(state, prof, sacc, consts, 0, K, pem.cfg, physics)
     launch(fs.kstep)
-    ms = cuda_ms(lambda: launch(fs.kstep), 20, lead=True)
-    plain_ms = cuda_ms(lambda: launch(fs.kstep_plain), 1)
-    bound = kstep_bound(fs, _kernels, (consts, state, prof, sacc), pem.cfg, physics)
-    bound_ms = bound["bound_ms"]
-    lanes = batch * fs.lanes_for(pem.cfg)
-    log(f"[6 timing] kstep B={batch} K={K}: {ms:.3f} ms/launch ({ms / K * 1e3:.2f} us/step, "
-        f"{ms / bound_ms:.2f}x the bound), plain {plain_ms:.1f} ms; {bound['ops_per_step'] / lanes:.0f} ops per "
-        f"lane-step, {bound['ops']:.3e} ops and {bound['bytes']:.3e} bytes per launch -> bound {bound_ms:.4f} ms "
-        f"(ops {bound['ops_ms']:.4f}, bytes {bound['bytes_ms']:.4f}); {barriers} block barriers per step, "
+    kstep_ms = cuda_ms(lambda: launch(fs.kstep), 20, lead=True)
+    kstep_plain_ms = cuda_ms(lambda: launch(fs.kstep_plain), 1)
+    kstep_least = kstep_bound(fs, _kernels, (consts, state, prof, sacc), pem.cfg)
+    log(f"[6 timing] kstep B={batch} K={K}: {kstep_ms:.3f} ms/launch ({kstep_ms / K * 1e3:.2f} us/step, "
+        f"{kstep_ms / kstep_least['bound_ms']:.2f}x the bound), plain {kstep_plain_ms:.1f} ms; "
+        f"{kstep_least['ops_per_step'] / batch:.0f} ops a row-step ({pem.cfg.nc} lanes), {kstep_least['ops']:.3e} ops "
+        f"and {kstep_least['bytes']:.3e} bytes per launch -> bound {kstep_least['bound_ms']:.4f} ms (ops "
+        f"{kstep_least['ops_ms']:.4f}, bytes {kstep_least['bytes_ms']:.4f}); {barriers} block barriers per step, "
         f"{blocks_per_sm} blocks per SM")
     # the issue-rate estimate: the busiest SM's warps each issue the step's
     # static instructions, over its 4 schedulers at one instruction a clock
@@ -2369,63 +2033,18 @@ def main() -> int:
     log(f"[6 timing] SM clock under load {clocks} MHz; {n_sm} SMs, {warps_per_sm} warps on the "
         f"busiest, {step_insns} static instructions a warp-step -> issue-limited estimate "
         + (f"{issue_us:.2f} us/step" if issue_us else "not measured (no read while busy)")
-        + f" against {ms / K * 1e3:.2f} measured ({time.perf_counter() - t0:.2f} s)")
-
-    kstep_ms, kstep_plain_ms = ms, plain_ms
-    kstep_bound_3 = (bound_ms, bound["bound_by"])
+        + f" against {kstep_ms / K * 1e3:.2f} measured")
     del params, consts, state, prof, sacc
-
-    # ---- 7. the K-step kernel's variants vs the plain version: B = 1024, fidelity (2,2)
-    t0 = time.perf_counter()
-    variant_err = {}
-    for label, variant in (("trace", {"num_save": 1000}), ("two_group", {"neutral_groups": 2})):
-        vcfg = dataclasses.replace(pem.cfg, average_start_time=0.0, **variant)
-        params, _ = _coupled_pre(default_coupled_inputs(batch, torch.Generator().manual_seed(8),
-                                                        spread=0.08, device=dev), vcfg)
-        consts, state0, prof0, sacc0 = fs.init_carry(params, pem.base_B, vcfg)
-        outs = {}
-        for block in (fs.kstep, fs.kstep_plain):
-            s_, p_, a_ = state0.clone(), prof0.clone(), sacc0.clone()
-            block(s_, p_, a_, consts, 0, K, vcfg, fs.Physics(vcfg))
-            outs[block] = (s_, p_, a_)
-        torch.cuda.synchronize()
-        (ks, kp, ka), (ps, pp, pa) = outs[fs.kstep], outs[fs.kstep_plain]
-        slots = list(range(fs.A_ICIR + 1))
-        if vcfg.num_save:
-            slots += list(range(fs.A_TRACE0, fs.A_TRACE0 + K))
-        pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kp[j], pp[j]) for j in range(kp.shape[0])]
-        pairs += [(ka[:, j], pa[:, j]) for j in slots]
-        assert all(bool(torch.isfinite(k).all()) for k, _ in pairs), f"{label}: kernel output not finite"
-        variant_err[label] = max(scaled_err(k, p) for k, p in pairs)
-        log(f"[7 variants] {label}: 1 launch (K={K}) vs {K} plain steps, B={batch}, {ks.shape[0]} state "
-            f"arrays, {len(pairs)} arrays in all: max scaled error {variant_err[label]:.3e} "
-            f"(tolerance {STATE_RTOL:g})")
-        assert variant_err[label] < STATE_RTOL, (label, variant_err[label])
-        del params, consts, state0, prof0, sacc0, outs, ks, kp, ka, ps, pp, pa, pairs
-    log(f"[7 variants] done ({time.perf_counter() - t0:.2f} s)")
-
-    # ---- 8. the one-step kernel vs its plain version: one step at B = 1024
-    t0 = time.perf_counter()
-    params, _ = _coupled_pre(default_coupled_inputs(batch, torch.Generator().manual_seed(9),
-                                                    spread=0.08, device=dev), pem.cfg)
-    consts, state0, prof0, sacc0 = fs.init_carry(params, pem.base_B, pem.cfg)
-    fs.kstep(state0, prof0, sacc0, consts, 0, K, pem.cfg)  # leave the smooth initial state
-    consts["scalars"][:, fs.P_ICIR] = sacc0[:, fs.A_ICIR]
-    extras0 = torch.zeros((5,) + tuple(state0.shape[1:]), device=dev)
-    ks, kx, ps, px = state0.clone(), extras0.clone(), state0.clone(), extras0.clone()
-    fs.step(ks, kx, consts, pem.cfg)
-    fs.step_plain(ps, px, consts, pem.cfg, physics)
-    torch.cuda.synchronize()
-    pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kx[j], px[j]) for j in range(5)]
-    assert all(bool(torch.isfinite(k).all()) for k, _ in pairs), "step kernel output not finite"
-    step_err = max(scaled_err(k, p) for k, p in pairs)
-    step_abs = max(float((k - p).abs().max()) for k, p in pairs)
-    log(f"[8 step parity] 1 step, B={batch}: max scaled error {step_err:.3e} (tolerance "
-        f"{STATE_RTOL:g}), max absolute error {step_abs:.3e} over {len(pairs)} arrays "
+    kstep_errs = {label: kstep_vs_plain(fs, pem.base_B, dataclasses.replace(pem.cfg, **variant), seed)
+                  for label, variant, seed in (("plain", {}, 7), ("trace", {"num_save": 1000}, 8),
+                                                ("two_group", {"neutral_groups": 2}, 8))}
+    log(f"[6 parity] 1 launch (K={K}) vs {K} plain steps, B={batch}: " + "; ".join(
+        f"{label} max scaled error {e:.3e}, max absolute {a:.3e} over {n} arrays"
+        for label, (e, a, n) in kstep_errs.items()) + f" (tolerance {STATE_RTOL:g}) "
         f"({time.perf_counter() - t0:.2f} s)")
-    assert step_err < STATE_RTOL
+    assert all(e < STATE_RTOL for e, _, _ in kstep_errs.values()), kstep_errs
 
-    # ---- 9. the wrapper path: hallthruster_jl, pem_v0 SPT-100 component, B = 1024
+    # ---- 9. the wrapper path: hallthruster_jl, pem_v0 SPT-100 component, B = 1024; the System paths
     t0 = time.perf_counter()
     thruster_comp = load_system("pem_v0_SPT-100.json", device=dev)["Thruster"]
     comp, fidelity = thruster_comp.model_kwargs, thruster_comp.model_fidelity
@@ -2433,62 +2052,36 @@ def main() -> int:
     postprocess = dict(comp["postprocess"], average_start_time=0.5 * WRAPPER_DURATION)
     tree_kw = dict(thruster=comp["thruster"], config=comp["config"], simulation=simulation,
                    postprocess=postprocess, model_fidelity=fidelity)
-    kw = dict(tree_kw, device=dev)
 
     def thruster_inputs(seed):
         x = default_coupled_inputs(batch, torch.Generator().manual_seed(seed), spread=0.08, device=dev)
         v_cc = cathode_coupling({k: x[k] for k in ("P_b", "V_a", "T_e", "V_vac", "Pstar", "P_T")})["V_cc"]
         return dict({k: v for k, v in x.items() if k in thruster.PEM_TO_JULIA}, V_cc=v_cc)
 
-    inp = thruster_inputs(42)
-    tree = thruster.format_input_tree(inp, thruster.PEM_TO_JULIA, **tree_kw)
+    tree = thruster.format_input_tree(thruster_inputs(42), thruster.PEM_TO_JULIA, **tree_kw)
     wcfg, wparams, wbase_B = thruster._tree_to_solver_inputs(tree, dev)
     _kernels.reset_counts()
-    out = thruster.hallthruster_jl(inp, **kw)
+    out = thruster.hallthruster_jl(thruster_inputs(42), device=dev, **tree_kw)
     torch.cuda.synchronize()
-    walls = []
-    for trial in range(2):
-        inp = thruster_inputs(100 + trial)
-        t1 = time.perf_counter()
-        out = thruster.hallthruster_jl(inp, **kw)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t1)
-    wrapper_launches = dict(_kernels.launch_counts)
-    n_launch_w = math.ceil(wcfg.num_steps / fs.INNER_STEPS)
-    ok = torch.isfinite(out["T"])
-    n_ok = int(ok.sum())
-    trace = out["discharge_current_trace"]
-    wall = min(walls)
-    log(f"[9 wrapper path] hallthruster_jl, fidelity {fidelity}, {wcfg.num_cells} cells, "
-        f"{wcfg.ncharge} charge states, adaptive dt {wcfg.dt:.4e} s, {wcfg.num_steps} steps x B={batch}, "
-        f"num_save {wcfg.num_save}, cycle average: walls {walls[0]:.3f} / {walls[1]:.3f} s, "
-        f"{wall / wcfg.num_steps * 1e6:.2f} us/step, finite {n_ok}/{batch}, "
-        f"mean T {float(out['T'][ok].mean()):.5f} N, mean I_d {float(out['I_d'][ok].mean()):.4f} A, "
-        f"kstep launches {wrapper_launches['kstep']} ({time.perf_counter() - t0:.2f} s)")
-    wrapper_rate = batch * wcfg.duration * 1e3 / wall
-    log(f"[9 wrapper path] {wrapper_rate:.2f} sim-ms/s")
-    raw = out["thruster_output"]["output"]["average"]
-    i_cap = 1.5 * wcfg.ncharge * FUNDAMENTAL_CHARGE * inp["mdot_a"] / wcfg.mi
-    med = lambda v: float(v.nanmedian())
-    log(f"[9 wrapper path] raw averages before the guards (medians over the batch): T "
-        f"{med(raw['thrust']):.5f} N, I_d {med(raw['discharge_current']):.4f} A, I_B0 "
-        f"{med(raw['ion_current']):.4f} A against a cap of {med(i_cap):.4f} A, mass efficiency "
-        f"{med(raw['mass_eff']):.4f}; rows over the I_B0 cap {int((raw['ion_current'] > i_cap).sum())}")
-    assert wrapper_launches["kstep"] == 3 * n_launch_w and wrapper_launches["step"] == 0, wrapper_launches
-    assert n_ok >= batch - 10, n_ok
-    assert trace.shape == (batch, 1000) and bool(torch.isfinite(trace[ok]).all())
+    wrapper_launches, ok, trace = dict(_kernels.launch_counts), torch.isfinite(out["T"]), out["discharge_current_trace"]
+    log(f"[9 wrapper path] hallthruster_jl, {wcfg.num_steps} steps x B={batch}: finite {int(ok.sum())}/{batch}, "
+        f"kstep launches {wrapper_launches['kstep']}")
+    assert wrapper_launches["kstep"] == math.ceil(wcfg.num_steps / K) and wrapper_launches["step"] == 0
+    assert int(ok.sum()) >= batch - 10 and trace.shape == (batch, 1000) and bool(torch.isfinite(trace[ok]).all())
     assert out["u_ion"].shape == (batch, wcfg.nc) and out["model_cost"].shape == (batch,)
-    del out, raw, trace, inp
+    del out, trace
     wrapper_ms = {}
     for label, c in (("trace", wcfg), ("no trace", dataclasses.replace(wcfg, num_save=0))):
         carry = fs.init_carry(wparams, wbase_B, c)
         launch_w = lambda: fs.kstep(carry[1], carry[2], carry[3], carry[0], 0, K, c)
         launch_w()
         wrapper_ms[label] = cuda_ms(launch_w, 20, lead=True)
-    log(f"[9 wrapper path] kstep on this config from its initial state, B={batch} K={K}: "
-        f"{wrapper_ms['trace']:.3f} ms/launch with the trace lanes, {wrapper_ms['no trace']:.3f} "
-        f"without (main path config: {kstep_ms:.3f})")
+    log(f"[9 wrapper path] fidelity {fidelity}, {wcfg.num_cells} cells, {wcfg.ncharge} charge states, adaptive "
+        f"dt {wcfg.dt:.4e} s, num_save {wcfg.num_save}: kstep from the initial state, B={batch} K={K}: "
+        f"{wrapper_ms['trace']:.3f} ms/launch with the trace lanes, {wrapper_ms['no trace']:.3f} without (main "
+        f"path config: {kstep_ms:.3f}) ({time.perf_counter() - t0:.2f} s)")
     del carry, wparams
+    systems = system_paths()
 
     # ---- 10. the one-step driver, its CUDA graphs and its eager route, vs the K-step driver: B = 1024, 914 steps
     t0 = time.perf_counter()
@@ -2528,7 +2121,7 @@ def main() -> int:
         assert run_["launches"]["step"] == n_small and run_["launches"]["kstep"] == 0, run_["launches"]
     differ = [k for k in eager["out"] if not same_bits(graphed["out"][k], eager["out"][k])]
     got = graphed["out"]
-    assert torch.equal(torch.isfinite(got["thrust"]), torch.isfinite(ref["thrust"]))
+    assert not differ and torch.equal(torch.isfinite(got["thrust"]), torch.isfinite(ref["thrust"])), differ
     ok = torch.isfinite(ref["thrust"])
     qoi_err = max(float(((got[k] - ref[k]).abs() / ref[k].abs())[ok].max())
                   for k in ("thrust", "discharge_current", "ion_current"))
@@ -2544,38 +2137,53 @@ def main() -> int:
         f"without them {graphed['replay_us_per_step']:.2f} us a step; the card busy "
         f"{graphed['card_busy_us_per_step']:.2f} us a step over {graphed['card_events_per_step']:.1f} events a step "
         f"in a traced run), eager {eager['wall_s'] * 1e3:.2f} ms a run "
-        f"({eager['us_per_step']:.2f} us a step); outputs that differ from the eager route in any bit: "
-        f"{differ or 'none'}; T/I_d/I_B0 vs the K-step driver max relative error {qoi_err:.3e} (tolerance "
-        f"{QOI_RTOL:g}), finite {int(ok.sum())}/{batch} ({time.perf_counter() - t0:.2f} s)")
-    assert not differ, differ
+        f"({eager['us_per_step']:.2f} us a step), equal bit for bit; T/I_d/I_B0 vs the K-step driver max relative "
+        f"error {qoi_err:.3e} (tolerance {QOI_RTOL:g}), finite {int(ok.sum())}/{batch} ({time.perf_counter() - t0:.2f} s)")
     assert qoi_err < QOI_RTOL and int(ok.sum()) > 0
     one_step_rec = {k: {f: v for f, v in r.items() if f != "out"} for k, r in one_step.items()}
-    del got, ref, one_step, graphed, eager
+    del got, ref, one_step, graphed, eager, params
 
     # ---- 11. the one-step kernel's time, its plain version's and its bound, B = 1024
     t0 = time.perf_counter()
-    state, extras = state0.clone(), extras0.clone()
-    fs.step(state, extras, consts, pem.cfg)
+    params, _ = _coupled_pre(default_coupled_inputs(batch, torch.Generator().manual_seed(9),
+                                                    spread=0.08, device=dev), pem.cfg)
+    consts, state, prof, sacc = fs.init_carry(params, pem.base_B, pem.cfg)
+    fs.kstep(state, prof, sacc, consts, 0, K, pem.cfg)  # leave the smooth initial state
+    consts["scalars"][:, fs.P_ICIR] = sacc[:, fs.A_ICIR]
+    extras = torch.zeros((5,) + tuple(state.shape[1:]), device=dev)
+    ks, kx, ps, px = state.clone(), extras.clone(), state.clone(), extras.clone()
+    fs.step(ks, kx, consts, pem.cfg)
+    fs.step_plain(ps, px, consts, pem.cfg, physics)
+    torch.cuda.synchronize()
+    pairs = [(ks[j], ps[j]) for j in range(ks.shape[0])] + [(kx[j], px[j]) for j in range(5)]
+    assert all(bool(torch.isfinite(k).all()) for k, _ in pairs), "step kernel output not finite"
+    step_err = max(scaled_err(k, p) for k, p in pairs)
+    step_abs = max(float((k - p).abs().max()) for k, p in pairs)
+    log(f"[11 step parity] 1 step, B={batch}: max scaled error {step_err:.3e} (tolerance {STATE_RTOL:g}), "
+        f"max absolute error {step_abs:.3e} over {len(pairs)} arrays")
+    assert step_err < STATE_RTOL
     step_ms = cuda_ms(lambda: fs.step(state, extras, consts, pem.cfg), 50, lead=True)
     step_paced_ms = cuda_ms(lambda: fs.step(state, extras, consts, pem.cfg), 50)
     step_plain_ms = cuda_ms(lambda: fs.step_plain(state, extras, consts, pem.cfg, physics), 3)
-    step_ops = count_ops(lambda: fs.step_plain(state, extras, consts, pem.cfg, physics))
-    # state read and written, the 5 output arrays written, the lane constants,
-    # of each sample's 128 scalar slots the 9 it reads (P_DV .. P_ICIR), and the
-    # rate coefficients read
-    step_bytes = 4 * (2 * state.numel() + extras.numel() + consts["nu_anom"].numel()
-                      + consts["omega_ce"].numel() + batch * (fs.P_ICIR + 1)
-                      + _kernels.rate_coefficients(pem.cfg).size)
-    s_ops_ms, s_bytes_ms = step_ops / H100_F32_FLOPS * 1e3, step_bytes / H100_BYTES_PER_S * 1e3
+    # counted with one lane per cell: state read and written, the 5 output
+    # arrays written, the lane constants, of each sample's 128 scalar slots the
+    # 9 it reads (P_DV .. P_ICIR), and the rate coefficients read
+    cell_consts, (cell_state, cell_extras) = per_cell(consts, (state, extras), pem.cfg.nc)
+    step_least = bound(
+        count_ops(lambda: fs.step_plain(cell_state, cell_extras, cell_consts, pem.cfg,
+                                        fs.Physics(pem.cfg, pem.cfg.nc))),
+        4 * (2 * cell_state.numel() + cell_extras.numel() + cell_consts["nu_anom"].numel()
+             + cell_consts["omega_ce"].numel() + batch * (fs.P_ICIR + 1)
+             + _kernels.rate_coefficients(pem.cfg).size))
     log(f"[11 step timing] step B={batch}: {step_ms * 1e3:.2f} us/launch on the card "
         f"({step_paced_ms * 1e3:.2f} us/launch at the host's launch pace), plain {step_plain_ms:.2f} ms; "
-        f"{step_ops:.3e} ops and {step_bytes:.3e} bytes per launch -> bound "
-        f"{max(s_ops_ms, s_bytes_ms) * 1e3:.2f} us (ops {s_ops_ms * 1e3:.2f}, bytes {s_bytes_ms * 1e3:.2f}) "
-        f"({time.perf_counter() - t0:.2f} s)")
+        f"{step_least['ops']:.3e} ops and {step_least['bytes']:.3e} bytes per launch -> bound "
+        f"{step_least['bound_ms'] * 1e3:.2f} us (ops {step_least['ops_ms'] * 1e3:.2f}, bytes "
+        f"{step_least['bytes_ms'] * 1e3:.2f}) ({time.perf_counter() - t0:.2f} s)")
+    del params, consts, state, prof, sacc, extras, cell_consts, cell_state, cell_extras
 
-    # ---- 12-13. the lax solver; 14. the System path
+    # ---- 12-13. the lax solver
     lax = lax_phases(kstep_ms / K * 1e3)
-    lax["system"] = system_phase()
     # ---- 15. the surrogates
     surrogate = surrogate_phase()
     # ---- 16. the UQ path (on phase 15's saved system)
@@ -2589,31 +2197,26 @@ def main() -> int:
     low_fidelity_kernels[0]["launches_diagnose_breathing"] = studies["launches"]["diagnose_breathing"]
     # ---- 20. parity_tpu (kstep against the lax solver's graphs) and mlp_sweep
     parity_sweep = parity_sweep_phase()
-    # ---- 21. the port's bench.py as its user runs it
-    bench = bench_phase(kstep_ms)
     # ---- 22. the plume's kernel
     plume_rec = plume_phase()
-    # ---- 23. the H9-class system
-    h9 = h9_phase()
-    # ---- 24. the K-step kernel's lane width
-    widths = width_phase()
 
     kernels = [{
         "name": "kstep", "instantiation": kname, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches["kstep"], "launches_wrapper_path": wrapper_launches["kstep"],
+        "launches_system": systems["spt100"]["kstep_launches"], "launches_h9": systems["h9"]["kstep_launches"],
         "launches_uq_predictive": uq["predictive"]["kstep_launches"],
-        "launches_two_shards": parallel["two_shards"]["kstep_launches"],
+        "launches_two_shards": parallel["two_shards"]["kstep_launches"], "launches_bench": bench["kstep_launches"],
         "launches_gen_data": workflow["gen_data"]["kstep_launches"],
         "launches_fit_surr": workflow["fit_surr"]["kstep_launches"],
         **{f"launches_{k}": v for k, v in studies["launches"].items() if not k.startswith("diagnose_breathing")},
         **{f"launches_{k}": v for k, v in parity_sweep["launches"].items()},
-        "launches_bench": bench["kstep_launches"][0],
-        "max_abs_err": max_abs, "max_scaled_err": max_err,
-        "max_scaled_err_trace": variant_err["trace"], "max_scaled_err_two_group": variant_err["two_group"],
+        "max_scaled_err": kstep_errs["plain"][0], "max_abs_err": kstep_errs["plain"][1],
+        "max_scaled_err_trace": kstep_errs["trace"][0], "max_scaled_err_two_group": kstep_errs["two_group"][0],
         "scaled_err_tolerance": STATE_RTOL, "ms": kstep_ms, "plain_ms": kstep_plain_ms,
-        "bound_ms": kstep_bound_3[0], "bound_by": kstep_bound_3[1], "library_ms": None,
-        "blocks_per_sm": blocks_per_sm, "barriers_per_step": barriers, "sass_instructions": len(sass),
-        "sass_instructions_per_step": step_insns, "sm_clock_mhz": sm_mhz, "issue_us_per_step": issue_us,
+        **{k: kstep_least[k] for k in ("bound_ms", "bound_by")}, "ops_per_row_step": kstep_least["ops_per_step"] / batch,
+        "library_ms": None, "blocks_per_sm": blocks_per_sm, "barriers_per_step": barriers,
+        "sass_instructions": len(sass), "sass_instructions_per_step": step_insns, "sm_clock_mhz": sm_mhz,
+        "issue_us_per_step": issue_us,
     }, *low_fidelity_kernels, {
         "name": "step", "route": "cuda", "source": STEP_SOURCE, "replaces": STEP_REPLACES,
         "launches": step_launches["step"], "launches_graphed": step_launches["step"],
@@ -2622,12 +2225,9 @@ def main() -> int:
         "us_per_step_graphed_replays": one_step_rec["graphed"]["replay_us_per_step"],
         "card_busy_us_per_step_graphed": one_step_rec["graphed"]["card_busy_us_per_step"],
         "us_per_step_eager": one_step_rec["eager"]["us_per_step"],
-        "max_abs_err": step_abs, "max_scaled_err": step_err,
-        "scaled_err_tolerance": STATE_RTOL, "ms": step_ms, "host_paced_ms": step_paced_ms,
-        "plain_ms": step_plain_ms,
-        "bound_ms": max(s_ops_ms, s_bytes_ms),
-        "bound_by": "operations" if s_ops_ms >= s_bytes_ms else "bytes",
-        "library_ms": None,
+        "max_abs_err": step_abs, "max_scaled_err": step_err, "scaled_err_tolerance": STATE_RTOL,
+        "ms": step_ms, "host_paced_ms": step_paced_ms, "plain_ms": step_plain_ms,
+        "bound_ms": step_least["bound_ms"], "bound_by": step_least["bound_by"], "library_ms": None,
     }, plume_rec]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"lax": lax}), flush=True)
@@ -2638,8 +2238,7 @@ def main() -> int:
     print(json.dumps({"studies": studies}), flush=True)
     print(json.dumps({"parity_sweep": parity_sweep}), flush=True)
     print(json.dumps({"bench": bench}), flush=True)
-    print(json.dumps({"h9": h9}), flush=True)
-    print(json.dumps({"widths": widths}), flush=True)
+    print(json.dumps({"systems": systems}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

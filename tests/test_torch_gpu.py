@@ -34,22 +34,35 @@ def _scaled(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def _carry_on_card(fidelity, **variant):
+def _carry_on_card(fidelity, batch=8, **variant):
     pem = CoupledPEM(model_fidelity=fidelity, duration=2e-5, device="cuda")
     cfg = dataclasses.replace(pem.cfg, average_start_time=0.0, **variant)
-    x = default_coupled_inputs(8, torch.Generator().manual_seed(1), spread=0.08, device="cuda")
+    x = default_coupled_inputs(batch, torch.Generator().manual_seed(1), spread=0.08, device="cuda")
     params, _ = _coupled_pre(x, cfg)
     return pem, cfg, params, fs.init_carry(params, pem.base_B, cfg)
 
 
-@pytest.mark.parametrize("fidelity,variant", [
-    pytest.param((0, 0), {}, id="fidelity0"), pytest.param((2, 2), {}, id="fidelity1"),
-    pytest.param((2, 2), {"num_save": 1000}, id="trace"),
-    pytest.param((2, 2), {"neutral_groups": 2}, id="two_group"),
+# the kernel flags of the H9-class system (configs/pem_v0_H9.json): I_d(t) trace
+# lanes, no ion wall losses, plume expansion or thrust divergence correction
+H9_FLAGS = {"num_save": 1000, "ion_wall_losses": False, "solve_plume": False,
+            "apply_thrust_divergence_correction": False}
+
+
+@pytest.mark.parametrize("fidelity,variant,batch", [
+    pytest.param((0, 0), {}, 8, id="fidelity0"), pytest.param((2, 2), {}, 8, id="fidelity1"),
+    pytest.param((2, 2), {"num_save": 1000}, 8, id="trace"),
+    pytest.param((2, 2), {"neutral_groups": 2}, 8, id="two_group"),
+    pytest.param((2, 2), H9_FLAGS, 8, id="h9_flags"),
+    pytest.param((2, 2), {}, 1024, id="batch1024"),
+    pytest.param((2, 2), {"num_save": 1000}, 1024, id="trace_batch1024"),
+    pytest.param((2, 2), {"neutral_groups": 2}, 1024, id="two_group_batch1024"),
 ])
-def test_kernel_matches_plain_on_card(fidelity, variant):
+def test_kernel_matches_plain_on_card(fidelity, variant, batch):
+    """One K = 50 launch against 50 plain steps from the same carry: every
+    state array, profile sum and accumulator slot (with the trace lanes) within
+    1e-4 scaled; at the main path's batch of 1,024 too."""
     _need_card()
-    _, cfg, _, (consts, state, prof, sacc) = _carry_on_card(fidelity, **variant)
+    _, cfg, _, (consts, state, prof, sacc) = _carry_on_card(fidelity, batch, **variant)
     got = [t.clone() for t in (state, prof, sacc)]
     ref = [t.clone() for t in (state, prof, sacc)]
     before = _kernels.launch_counts["kstep"]
@@ -66,10 +79,16 @@ def test_kernel_matches_plain_on_card(fidelity, variant):
         assert _scaled(got[2][:, j], ref[2][:, j]) < 1e-4
 
 
-@pytest.mark.parametrize("fidelity,groups", [((0, 0), 1), ((2, 2), 1), ((2, 2), 2)])
-def test_step_kernel_matches_plain_on_card(fidelity, groups):
+@pytest.mark.parametrize("fidelity,groups,batch", [
+    pytest.param((0, 0), 1, 8, id="fidelity0-1"), pytest.param((2, 2), 1, 8, id="fidelity1-1"),
+    pytest.param((2, 2), 2, 8, id="fidelity2-2"), pytest.param((2, 2), 1, 1024, id="batch1024"),
+])
+def test_step_kernel_matches_plain_on_card(fidelity, groups, batch):
+    """One step of the step kernel against the plain version from the same
+    carry: every state array and output array within 1e-4 scaled; at the main
+    path's batch of 1,024 too."""
     _need_card()
-    _, cfg, _, (consts, state, _, sacc) = _carry_on_card(fidelity, neutral_groups=groups)
+    _, cfg, _, (consts, state, _, sacc) = _carry_on_card(fidelity, batch, neutral_groups=groups)
     consts["scalars"][:, fs.P_ICIR] = sacc[:, fs.A_ICIR]
     extras = torch.zeros((5,) + state.shape[1:], device="cuda")
     got, got_ex, ref, ref_ex = state.clone(), extras.clone(), state.clone(), extras.clone()
@@ -159,21 +178,26 @@ def test_kernel_wrapper_checks_inputs_on_card():
         fs.kstep(state, prof.transpose(1, 2), sacc, consts, 0, 5, pem.cfg)
 
 
-@pytest.mark.parametrize("dtype,fidelity", [("float32", (4, 2)), ("float64", (2, 2))])
-def test_lax_solver_on_card_matches_cpu(dtype, fidelity):
-    """The lax solver (302 cells in float32, 202 in float64) runs on the card it
-    is given and agrees with the same code on the host CPU after 100 steps:
+@pytest.mark.parametrize("dtype,fidelity,route", [
+    pytest.param("float32", (4, 2), None, id="float32-fidelity0"),
+    pytest.param("float64", (2, 2), None, id="float64-fidelity1"),
+    pytest.param("float32", (2, 2), "lax", id="float32-fidelity2"),
+])
+def test_lax_solver_on_card_matches_cpu(dtype, fidelity, route):
+    """The lax solver (302 cells in float32, 202 in float64, and 202 in float32
+    by ``solver="lax"``, where the default route is the kernel) runs on the card
+    it is given and agrees with the same code on the host CPU after 100 steps:
     1e-4 scaled in float32, 1e-10 in float64; no kernel is launched."""
     from hallthrusterpem_tpu_torch.models.thruster import dispatch_solver, solver, uses_lax_solver
 
     _need_card()
     pem = CoupledPEM(model_fidelity=fidelity, duration=2e-5, device="cuda")
     cfg = dataclasses.replace(pem.cfg, average_start_time=0.0, duration=100 * pem.cfg.dt, dtype=dtype)
-    assert uses_lax_solver(cfg)
+    assert uses_lax_solver(cfg) == (route is None)
     x = default_coupled_inputs(8, torch.Generator().manual_seed(2), spread=0.08, device="cuda")
     params, _ = _coupled_pre(x, cfg)
     before = dict(_kernels.launch_counts)
-    got = dispatch_solver(params, pem.base_B, cfg)
+    got = dispatch_solver(params, pem.base_B, cfg, solver=route)
     assert _kernels.launch_counts == before
     assert got["thrust"].device.type == "cuda" and got["thrust"].dtype == getattr(torch, dtype)
     ref = solver.simulate_batch({k: v.cpu() for k, v in params.items()}, pem.base_B.cpu(), cfg)
