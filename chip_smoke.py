@@ -11,7 +11,9 @@ Phases, each printed with its seconds:
    nvcc each, started together, and ptxas's
    register / shared-memory / spill lines; the K-step kernel's blocks per SM
    at the main path's config, and from its SASS (``cuobjdump``) the block
-   barriers and instructions of one step and the instruction count by opcode;
+   barriers and instructions of one step and the instruction count by opcode,
+   with the min/max opcodes (``FMNMX``, ``FSETP``, ``FSEL``) of one step of
+   ``kstep<3,1>`` and of ``kstep<1,1>`` (fidelity (0,0));
 4. main path: ``CoupledPEM(model_fidelity=(2,2), duration=2e-5)`` (9,138 steps)
    at B = 1024, one run with the launch count checked: phase 17's reference;
    ``python -m hallthrusterpem_tpu_torch.bench`` as a child process, its line,
@@ -20,7 +22,8 @@ Phases, each printed with its seconds:
    (counted as ``pembench/work.py`` counts a call: one lane per cell, its
    ``PEAKS``), beside its block barriers per step; the SM clock under load, and
    the time a step would take at that clock if every scheduler issued every
-   cycle; one launch against 50 plain steps at B = 1024 on the main path's
+   cycle, beside ``kstep<1,1>``'s static instructions a warp-step; one launch
+   against 50 plain steps at B = 1024 on the main path's
    config, with the trace lanes and with two neutral groups;
 9. the wrapper path: ``hallthruster_jl`` on the pem_v0 SPT-100 Thruster
    component (of ``configs/pem_v0_SPT-100.json``) at fidelity (2,2), B = 1024,
@@ -382,11 +385,12 @@ def kernel_sass(lib_path: str, kernel: str) -> list:
 
 def step_loop_counts(sass: list, n_levels: int) -> tuple:
     """Block barriers and instructions one step of the K-step kernel issues per
-    warp, read from its SASS. A loop is a backward branch; the step loop is the
-    outermost loop that holds a barrier, and the one loop it may hold is the
-    PCR's (``#pragma unroll 1`` in physics.cuh), which runs ``n_levels`` times a
-    step. Instructions are static: both sides of a branch count, and the
-    subroutines it calls (the slow paths of IEEE division) do not."""
+    warp, and those instructions by opcode, read from its SASS. A loop is a
+    backward branch; the step loop is the outermost loop that holds a barrier,
+    and the one loop it may hold is the PCR's (``#pragma unroll 1`` in
+    physics.cuh), which runs ``n_levels`` times a step. Instructions are static:
+    both sides of a branch count, and the subroutines it calls (the slow paths
+    of IEEE division) do not."""
     heads: dict = {}
     for addr, _, tgt in sass:
         if tgt is not None and tgt < addr:
@@ -399,7 +403,10 @@ def step_loop_counts(sass: list, n_levels: int) -> tuple:
     if len(inner) != 1 or not bars(inside(inner[0])):
         raise RuntimeError(f"step loop {step} holds loops {inner}, not the PCR's alone")
     body, pcr = inside(step), inside(inner[0])
-    return (bars(body) + (n_levels - 1) * bars(pcr), len(body) + (n_levels - 1) * len(pcr))
+    ops = collections.Counter(op.split(".")[0] for _, op, _ in body)
+    for _ in range(n_levels - 1):
+        ops.update(op.split(".")[0] for _, op, _ in pcr)
+    return bars(body) + (n_levels - 1) * bars(pcr), len(body) + (n_levels - 1) * len(pcr), ops
 
 
 def kstep_mangled(ncharge: int, groups: int, lanes: int) -> str:
@@ -1981,13 +1988,23 @@ def main() -> int:
     sass = kernel_sass(_kernels.build_info["kstep"]["path"],
                        kstep_mangled(pem.cfg.ncharge, pem.cfg.neutral_groups, fs.lanes_for(pem.cfg)))
     n_levels = _kernels.kernel_params(pem.cfg).n_levels
-    barriers, step_insns = step_loop_counts(sass, n_levels)
+    barriers, step_insns, step_ops = step_loop_counts(sass, n_levels)
     opcodes = collections.Counter(op.split(".")[0] for _, op, _ in sass)
+    minmax = lambda ops: ", ".join(f"{k} {ops[k]}" for k in ("FMNMX", "FSETP", "FSEL"))
     log(f"[2 build] {kname} at {fs.lanes_for(pem.cfg)} threads: {blocks_per_sm} blocks per SM; "
         f"in its SASS, per step ({n_levels} PCR levels): {barriers} block barriers, {step_insns} "
-        f"instructions a warp issues (static, both sides of each branch); {len(sass)} instructions "
-        f"in all: " + ", ".join(f"{k} {n}" for k, n in opcodes.most_common(12))
+        f"instructions a warp issues (static, both sides of each branch; {minmax(step_ops)}); "
+        f"{len(sass)} instructions in all: " + ", ".join(f"{k} {n}" for k, n in opcodes.most_common(12))
         + f" ({time.perf_counter() - t0:.2f} s)")
+    # kstep<1,1> at fidelity (0,0): the same counts of its step loop
+    cfg00 = CoupledPEM(thruster="SPT-100", model_fidelity=(0, 0), duration=args.duration, device=dev).cfg
+    sass00 = kernel_sass(_kernels.build_info["kstep"]["path"],
+                         kstep_mangled(cfg00.ncharge, cfg00.neutral_groups, fs.lanes_for(cfg00)))
+    levels00 = _kernels.kernel_params(cfg00).n_levels
+    barriers00, step_insns00, step_ops00 = step_loop_counts(sass00, levels00)
+    log(f"[2 build] kstep<{cfg00.ncharge},{cfg00.neutral_groups}> at {fs.lanes_for(cfg00)} threads, per step "
+        f"({levels00} PCR levels): {barriers00} block barriers, {step_insns00} instructions a warp issues "
+        f"({minmax(step_ops00)}); {len(sass00)} instructions in all")
 
     # ---- 4. main path: CoupledPEM at fidelity (2,2), B = 1024
     t0 = time.perf_counter()
@@ -2033,7 +2050,8 @@ def main() -> int:
     log(f"[6 timing] SM clock under load {clocks} MHz; {n_sm} SMs, {warps_per_sm} warps on the "
         f"busiest, {step_insns} static instructions a warp-step -> issue-limited estimate "
         + (f"{issue_us:.2f} us/step" if issue_us else "not measured (no read while busy)")
-        + f" against {kstep_ms / K * 1e3:.2f} measured")
+        + f" against {kstep_ms / K * 1e3:.2f} measured; kstep<{cfg00.ncharge},{cfg00.neutral_groups}> "
+        f"{step_insns00} static instructions a warp-step")
     del params, consts, state, prof, sacc
     kstep_errs = {label: kstep_vs_plain(fs, pem.base_B, dataclasses.replace(pem.cfg, **variant), seed)
                   for label, variant, seed in (("plain", {}, 7), ("trace", {"num_save": 1000}, 8),

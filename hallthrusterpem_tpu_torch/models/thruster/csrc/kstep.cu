@@ -22,24 +22,26 @@
 // at fidelity (2,2), B = 1024, K = 50, on 256 lanes) counts an operation as
 // half a fused multiply-add at 67 TFLOP/s; the kernel took 5.9x that. The
 // issue rate of its instructions: the plain version's ~1.05e3 float32
-// operations per lane-step become 2,586 SASS instructions a warp issues per
+// operations per lane-step become 2,474 SASS instructions a warp issues per
 // step of kstep<3,1> in chip_smoke.py's static count of the step loop (both
-// sides of each branch; precise divisions, expf/logf, NaN-propagating
-// min/max, shared loads of the rate coefficients). At the 1,980 MHz SM clock
-// read under load, the 64 warps of a 256-lane layout's busiest SM would issue
-// 2,629 of them in 21.2 us a step against the 24.4 us measured; a warp fewer
-// a block (224 lanes) cut the time by 10.0%, as the count. Per lane and
-// launch it moves only 128 bytes. The design:
+// sides of each branch; precise divisions, expf/logf, shared loads of the rate
+// coefficients, the compares and selects of the masks and limiters). At the
+// 1,980 MHz SM clock read under load, the 64 warps of a 256-lane layout's
+// busiest SM would issue 2,629 of them in 21.2 us a step against the 24.4 us
+// measured; a warp fewer a block (224 lanes) cut the time by 10.0%, as the
+// count. Per lane and launch it moves only 128 bytes. The design:
 // - few block barriers: 15 a step at fidelity (2,2), read from the SASS by
 //   chip_smoke.py (physics.cuh says where they are), 41 before;
 // - four blocks per SM (kMinBlocksPerSM in physics.cuh): each instance is
-//   bounded at 256 threads (64 registers; 76 B of spill stores in
+//   bounded at 256 threads (64 registers; 84 B of spill stores in
 //   kstep<3,1>) and, with one neutral group, also at 224 (72 registers, 28 B)
 //   for the widths between 128 and 256 lanes; 1024 samples fill two waves of
 //   528 blocks on 132 SMs, the 28 warps of an SM's four 224-lane blocks 7 to
 //   each scheduler;
 // - explicit fmaf in the Horner steps of the rate fits, the HLLE fluxes and the
-//   PCR update; the build keeps -fmad=false, so nothing else is contracted.
+//   PCR update; the build keeps -fmad=false, so nothing else is contracted;
+// - the NaN-propagating min and max (mx, mn, clip in physics.cuh) one
+//   FMNMX.NAN each, not two compares and a select.
 // Measured at fidelity (2,2), B = 1024, K = 50 (chip_smoke.py phases 2 and 6,
 // NVIDIA H100 80GB HBM3, 700 W power limit), each step on top of the last:
 //   the first design (41 barriers, 127 registers, 2 blocks/SM)   1.625 ms
@@ -53,6 +55,8 @@
 //   PCR loop kept rolled, warp-partial sum unrolled               1.213 ms
 //   (f) 224 lanes (7 warps) instead of 256, 72 registers,         1.081 ms
 //       28 B of spills (1.202 ms on 256 lanes in the same run)
+//   (g) min/max as max.NaN / min.NaN: 2,474 instructions a        1.018 ms
+//       warp-step, was 2,586 (1.081 ms in the same run)
 // The barrier cuts gave 6%; occupancy and fewer instructions gave the rest.
 //
 // The source includes no PyTorch header; it is built with nvcc into a shared

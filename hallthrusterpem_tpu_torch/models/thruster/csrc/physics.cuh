@@ -102,9 +102,27 @@ struct Shared {
   float coef[kMaxCoef];              // rate log-polys
 };
 
-// NaN-propagating max/min/clip (jnp.maximum / jnp.minimum / jnp.clip semantics)
+// NaN-propagating max/min/clip (jnp.maximum / jnp.minimum / jnp.clip semantics).
+// On the card (sm_80 and later) each is the one instruction max.NaN / min.NaN
+// (FMNMX.NAN), where the ternary of the host form compiles to two compares and
+// a select. The two forms differ only in the sign of a zero result from a +0,
+// -0 pair (the instruction orders -0 below +0) and in a NaN's payload; the
+// kernels' outputs are those of the ternary form bit for bit (PERF.md §6).
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+__device__ __forceinline__ float mx(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float mn(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+#else
 __device__ __forceinline__ float mx(float a, float b) { return (a > b || a != a) ? a : b; }
 __device__ __forceinline__ float mn(float a, float b) { return (a < b || a != a) ? a : b; }
+#endif
 __device__ __forceinline__ float clip(float x, float lo, float hi) { return mn(mx(x, lo), hi); }
 __device__ __forceinline__ float sgn(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
 

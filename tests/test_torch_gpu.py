@@ -48,21 +48,63 @@ H9_FLAGS = {"num_save": 1000, "ion_wall_losses": False, "solve_plume": False,
             "apply_thrust_divergence_correction": False}
 
 
-@pytest.mark.parametrize("fidelity,variant,batch", [
-    pytest.param((0, 0), {}, 8, id="fidelity0"), pytest.param((2, 2), {}, 8, id="fidelity1"),
-    pytest.param((2, 2), {"num_save": 1000}, 8, id="trace"),
-    pytest.param((2, 2), {"neutral_groups": 2}, 8, id="two_group"),
-    pytest.param((2, 2), H9_FLAGS, 8, id="h9_flags"),
-    pytest.param((2, 2), {}, 1024, id="batch1024"),
-    pytest.param((2, 2), {"num_save": 1000}, 1024, id="trace_batch1024"),
-    pytest.param((2, 2), {"neutral_groups": 2}, 1024, id="two_group_batch1024"),
+def _poison(cfg, state, prof, sacc, consts):
+    """Rows 1-6 of a carry made non-finite or signed-zero, in place: a NaN and
+    +-inf in the state (the scrub's inputs), +-0 in densities and momenta, a NaN
+    transport coefficient and a NaN scalar that carry NaN through every min and
+    max of the step, and a NaN and an inf already in the profile sums and the
+    failed slot."""
+    NC = cfg.nc
+    state[0, 1, 5] = float("nan")
+    state[2, 1, 1] = float("nan")
+    state[1, 2, NC - 2] = float("inf")
+    state[3, 2, 7] = -float("inf")
+    state[0, 3, 3:9] = 0.0
+    state[2, 3, 9:12] = -0.0
+    state[3, 3, 1:NC:2] = -0.0
+    state[3, 3, 2:NC:2] = 0.0
+    consts["nu_anom"][4, NC // 2] = float("nan")
+    consts["scalars"][5, fs.P_DV] = float("nan")
+    prof[0, 6, 4] = float("nan")
+    prof[cfg.ncharge, 6, 8] = float("inf")
+    sacc[6, fs.A_FAILED] = float("nan")
+    sacc[6, fs.A_THRUST] = -float("inf")
+
+
+def _assert_pattern_and_close(got, ref, name):
+    """The same NaN, +inf and -inf entries, and the finite ones within 1e-4 scaled."""
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(ref)), (name, test.__name__)
+    fin = torch.isfinite(ref)
+    if fin.any():
+        assert _scaled(got[fin], ref[fin]) < 1e-4, name
+
+
+@pytest.mark.parametrize("fidelity,variant,batch,poison", [
+    pytest.param((0, 0), {}, 8, False, id="fidelity0"), pytest.param((2, 2), {}, 8, False, id="fidelity1"),
+    pytest.param((2, 2), {"num_save": 1000}, 8, False, id="trace"),
+    pytest.param((2, 2), {"neutral_groups": 2}, 8, False, id="two_group"),
+    pytest.param((2, 2), H9_FLAGS, 8, False, id="h9_flags"),
+    pytest.param((2, 2), {}, 1024, False, id="batch1024"),
+    pytest.param((2, 2), {"num_save": 1000}, 1024, False, id="trace_batch1024"),
+    pytest.param((2, 2), {"neutral_groups": 2}, 1024, False, id="two_group_batch1024"),
+    pytest.param((0, 0), {}, 8, True, id="nonfinite_fidelity0"),
+    pytest.param((2, 2), {}, 8, True, id="nonfinite_fidelity1"),
+    pytest.param((2, 2), H9_FLAGS, 8, True, id="nonfinite_h9_flags"),
 ])
-def test_kernel_matches_plain_on_card(fidelity, variant, batch):
+def test_kernel_matches_plain_on_card(fidelity, variant, batch, poison):
     """One K = 50 launch against 50 plain steps from the same carry: every
     state array, profile sum and accumulator slot (with the trace lanes) within
-    1e-4 scaled; at the main path's batch of 1,024 too."""
+    1e-4 scaled; at the main path's batch of 1,024 too. With ``poison``, rows
+    1-6 hold NaN, +-inf and +-0 entries (:func:`_poison`): every array, the
+    failed slot included, has the plain version's NaN and infinite entries, and
+    its finite ones are within the tolerance. This holds the kernel's
+    NaN-propagating min and max (one instruction each on the card) to
+    ``torch.maximum`` and ``torch.minimum``."""
     _need_card()
     _, cfg, _, (consts, state, prof, sacc) = _carry_on_card(fidelity, batch, **variant)
+    if poison:
+        _poison(cfg, state, prof, sacc, consts)
     got = [t.clone() for t in (state, prof, sacc)]
     ref = [t.clone() for t in (state, prof, sacc)]
     before = _kernels.launch_counts["kstep"]
@@ -71,12 +113,16 @@ def test_kernel_matches_plain_on_card(fidelity, variant, batch):
     torch.cuda.synchronize()
     assert _kernels.launch_counts["kstep"] == before + 1
     for j in range(state.shape[0]):
-        assert _scaled(got[0][j], ref[0][j]) < 1e-4
+        _assert_pattern_and_close(got[0][j], ref[0][j], f"state {j}")
     for j in range(prof.shape[0]):
-        assert _scaled(got[1][j], ref[1][j]) < 1e-4
+        _assert_pattern_and_close(got[1][j], ref[1][j], f"prof {j}")
     slots = list(range(8)) + (list(range(fs.A_TRACE0, fs.A_TRACE0 + 50)) if cfg.num_save else [])
     for j in slots:
-        assert _scaled(got[2][:, j], ref[2][:, j]) < 1e-4
+        _assert_pattern_and_close(got[2][:, j], ref[2][:, j], f"sacc {j}")
+    if poison:
+        # scrubbed rows 1-2 run on, rows 4-5 carry NaN through the step; all are failed
+        assert (got[2][[1, 2, 4, 5], fs.A_FAILED] == 1.0).all() and torch.isnan(got[2][6, fs.A_FAILED])
+        assert torch.isfinite(got[0][:, 1:3]).all() and torch.isnan(got[0][:, 4:6]).any()
 
 
 @pytest.mark.parametrize("fidelity,groups,batch", [

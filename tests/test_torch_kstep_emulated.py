@@ -285,3 +285,49 @@ def test_emulated_launch_refuses_widths_off_the_warp(emulated, lanes):
     p.K = 1
     assert emulated["kstep"].kstep_launch(ctypes.byref(p), 1, 1, 1, lanes, *([None] * 8)) == 1
     assert emulated["step"].step_launch(ctypes.byref(p), 1, 1, 1, lanes, *([None] * 7)) == 1
+
+
+#: mx, mn and clip of physics.cuh over arrays, compiled by g++ in their host form
+MINMAX_SRC = r"""
+#include "physics.cuh"
+extern "C" void minmax(const float* a, const float* b, const float* c, int n, float* out) {
+  for (int i = 0; i < n; ++i) {
+    out[i] = mx(a[i], b[i]);
+    out[n + i] = mn(a[i], b[i]);
+    out[2 * n + i] = clip(a[i], b[i], c[i]);
+  }
+}
+"""
+
+
+def test_minmax_primitives_match_torch(tmp_path):
+    """``mx``, ``mn`` and ``clip`` of physics.cuh against ``torch.maximum``,
+    ``torch.minimum`` and ``torch.clamp`` on every pair (and every triple for
+    ``clip``) of a table with NaN, +-inf, +-0, a denormal and finite values: a
+    NaN on either side, or in either bound, gives NaN, and every other result
+    has torch's value (a tie of +0 and -0 may give either zero). On the card the
+    two are one max.NaN / min.NaN instruction each, held to the plain version's
+    non-finite pattern by the gpu tests."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("g++ is needed to compile physics.cuh for the CPU")
+    src, lib_path = tmp_path / "minmax.cpp", tmp_path / "libminmax.so"
+    src.write_text(MINMAX_SRC)
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
+                    f"-I{EMU}", f"-I{_kernels.CSRC}", "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.minmax.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    table = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-45, 1.0, -1.0, 2.5,
+                          -3e38, 3e38], dtype=torch.float32)
+    n = len(table)
+    a, b, c = (g.reshape(-1).contiguous() for g in torch.meshgrid(table, table, table, indexing="ij"))
+    out = torch.empty(3 * n**3, dtype=torch.float32)
+    lib.minmax(a.data_ptr(), b.data_ptr(), c.data_ptr(), n**3, out.data_ptr())
+    got_mx, got_mn, got_clip = out.reshape(3, -1)
+    for name, got, ref in (("mx", got_mx, torch.maximum(a, b)), ("mn", got_mn, torch.minimum(a, b)),
+                           ("clip", got_clip, torch.clamp(a, b, c))):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref)), name
+        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True, msg=name)
+    assert torch.isnan(got_mx[torch.isnan(a) | torch.isnan(b)]).all()
+    assert torch.isnan(got_clip[torch.isnan(a) | torch.isnan(b) | torch.isnan(c)]).all()
