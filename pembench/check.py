@@ -45,6 +45,7 @@ AVERAGED = ("T", "I_d", "I_B0", "eta_c", "eta_m", "eta_v", "eta_a", "u_ion")
 TRACE = "discharge_current_trace"
 #: every output of the system the comparison reads
 COMPARED = ("V_cc", *AVERAGED, TRACE, "j_ion", "div_angle")
+#: the numbers :func:`readings` gives and the ``predict`` operation judges
 NUMBERS = ("cathode_gap", "trace_gap", "discharge_gap", "plume_gap", "nonfinite_mismatch")
 
 
@@ -104,7 +105,15 @@ def load_limits(cell: str) -> dict:
         return json.load(fd)
 
 
-def judge(numbers: dict, limits: dict) -> tuple[bool, dict]:
-    """(every number within its limit, {name: {"value", "limit"}})."""
-    checks = {n: {"value": numbers[n], "limit": limits[n]} for n in NUMBERS}
-    return all(c["value"] <= c["limit"] for c in checks.values()), checks
+def judge(numbers: dict, limits: dict, names: tuple = NUMBERS) -> tuple[bool, dict]:
+    """(every number within its limit, {name: {"value", "limit"}}) over the
+    names of ``limits`` (a limits file's ``limits``) and ``names`` (the numbers
+    the operation computes; :func:`readings`' by default). A name that only one of the two holds reads NaN
+    there, and NaN passes no limit, so a limits file that leaves out a number
+    the operation computes, or names one it does not, is not correct; nor is a
+    check with no names."""
+    order = [*limits, *(n for n in names if n not in limits)]
+    nan = float("nan")
+    checks = {n: {"value": numbers.get(n, nan) if n in names else nan, "limit": limits.get(n, nan)}
+              for n in order}
+    return bool(names) and all(c["value"] <= c["limit"] for c in checks.values()), checks

@@ -1,26 +1,27 @@
 """The readings that the check's limits are set from, without a measured window.
 
-    python3 pembench/control.py --workload <cell> --seeds 1,2,3 --side program|control|perturbed [--dump f.npz]
+    python3 pembench/control.py --workload <cell> --seeds 1,2,3 --side program|<side> [--dump f.npz]
 
 For each seed it takes the call and the rows that the check of a run takes
 (:class:`pembench.run.CheckDraw`, over a window of ``CALLS`` completed calls),
-computes them on one side, and compares them with the plain reference in
-float32 on the same rows (:mod:`pembench.check`):
+computes them on one side, and compares them with the plain reference on the
+same rows, through the operation that the cell's configuration names (see
+``pembench/run.py``):
 
-- ``program``: the timed path, ``System.predict`` on the whole call; its line
-  also gives the readings of faults planted in the program's outputs of that
-  call (:data:`FAULTS`);
-- ``control``: the plain reference computed in bfloat16, the precision below
-  the float32 that the configuration states, in the program's place;
-- ``perturbed``: the plain reference in float32 with the input ``a_1`` one
-  float32 step up: how far rounding alone moves the numbers compared.
+- ``program``: the timed path, the operation's call on the whole call; its
+  line also gives the readings of the operation's ``faults``, planted in the
+  program's outputs of that call;
+- any of the operation's ``sides``; every operation has ``control``, the plain
+  reference in the precision below the one that the configuration states, in
+  the program's place. For ``predict``: the reference in bfloat16, and
+  ``perturbed``, the reference in float32 with the input ``a_1`` one float32
+  step up: how far rounding alone moves the numbers compared.
 
 One JSON line a seed: the seed, the numbers compared and the seconds each side
-took; ``--dump`` keeps every compared array (float32, as both sides compute
-them). The limits in ``pembench/limits/<cell>.json`` lie between the program's
-readings over a dozen seeds or more and the control's. The tests run the
-control at a tiny size on the CPU (``pembench/tests``); the benchmark's runs
-never run it.
+took; ``--dump`` keeps every compared array (float32). The
+limits in ``pembench/limits/<cell>.json`` lie between the program's readings
+over a dozen seeds or more and the control's. The tests run the control at a
+tiny size on the CPU (``pembench/tests``); the benchmark's runs never run it.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ ROOT = Path(__file__).resolve().parents[1]
 parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 parser.add_argument("--workload", required=True)
 parser.add_argument("--seeds", required=True, help="comma-separated seeds")
-parser.add_argument("--side", choices=("program", "control", "perturbed"), required=True)
+parser.add_argument("--side", required=True, help="'program', or one of the operation's sides such as 'control'")
 parser.add_argument("--dump", default=None, help="an .npz to keep every compared array in, per seed")
 parser.add_argument("--device", default="cuda")
 
@@ -46,82 +47,42 @@ parser.add_argument("--device", default="cuda")
 CALLS = 16
 
 
-def _half_rows(got: dict, rows: np.ndarray, n: int) -> dict:
-    """The rows of the call's second half given the mean of its first half's."""
-    late = rows >= n // 2
-    out = {k: v.copy() for k, v in got.items()}
-    for v in out.values():
-        v[late] = np.nanmean(v[~late], axis=0)
-    return out
-
-
-def _one_row(got: dict, rows: np.ndarray, n: int) -> dict:
-    """The first row with a discharge given the next such row's outputs, as an
-    index off by one would."""
-    ok = np.flatnonzero(np.isfinite(got["T"]))
-    out = {k: v.copy() for k, v in got.items()}
-    if len(ok) > 1:
-        for v in out.values():
-            v[ok[0]] = v[ok[1]]
-    return out
-
-
-def _one_answer(got: dict, rows: np.ndarray, n: int) -> dict:
-    """The current density of the first row with a beam altered by 1%."""
-    j = got["j_ion"].copy()
-    j[np.flatnonzero(np.isfinite(got["I_B0"]))[:1]] *= 1.01
-    return dict(got, j_ion=j)
-
-
-#: faults planted in the program's outputs of the checked call: name -> (outputs, call rows, rows a call) -> outputs
-FAULTS = {"half the rows": _half_rows, "a row from another": _one_row, "one answer altered": _one_answer}
-
-
 def readings(workload: str, seeds: list, side: str, device: str = "cuda"):
     """Yield one record per seed (see the module's note)."""
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from pembench import check
-    from pembench.run import CheckDraw, load_cell, sized
-    from pembench.traffic import Traffic
+    from pembench.run import CheckDraw, load_cell
 
-    cpu = device == "cpu"
-    spec = load_cell(workload, cpu)
-    doc, limits, reference = spec["doc"], spec["limits"], spec["reference"]
-    system = None
-    if side == "program":
-        from hallthrusterpem_tpu_torch.core.json_loader import load_system
-
-        system = load_system(spec["config_file"], device=device)
-        sized(system, doc)
+    spec = load_cell(workload, device == "cpu")
+    device = torch.device(device)
     for seed in seeds:
-        traffic = Traffic(doc, spec["mix"], seed)
-        n = min(traffic.rows, 4) if cpu else traffic.rows
+        op = spec["operation"].Operation(spec, seed, device)
+        if side != "program" and side not in op.sides:
+            raise ValueError(f"{workload}'s operation has no side {side!r}: 'program' or one of {op.sides}")
         checked = CheckDraw(seed)
         pick = [k for k in range(CALLS) if checked.offer()][-1]
-        rows = {k: v[:n] for k, v in traffic.call(pick).items()}
-        sample = checked.sample(n, limits)
-        part = {k: v[sample] for k, v in rows.items()}
+        sample = checked.sample(op.rows_per_call, spec["limits"])
         t0 = time.perf_counter()
         if side == "program":
-            out = system.predict(rows, use_model=doc["use_model"])
-            got = {k: out[k].detach().to("cpu", torch.float64).numpy()[sample] for k in check.COMPARED}
+            out = op.call(op.inputs(pick))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            op.done(pick, out, True)
             del out
-        elif side == "control":
-            got = reference.predict(doc, part, doc["use_model"], torch.bfloat16, device, batch=rows)
-        else:  # the reference again with a_1 one float32 step up: how far rounding alone moves it
-            moved = dict(part, a_1=np.nextafter(part["a_1"], np.float32(np.inf)))
-            got = reference.predict(doc, moved, doc["use_model"], torch.float32, device, batch=rows)
+            got = op.kept(sample)[1]
+        else:
+            got = op.expected(pick, sample, side)
         t1 = time.perf_counter()
-        ref = reference.predict(doc, part, doc["use_model"], torch.float32, device, batch=rows)
+        ref = op.expected(pick, sample)
         t2 = time.perf_counter()
         record = {"workload": workload, "side": side, "seed": seed, "call": pick, "rows": len(sample),
-                  "numbers": check.readings(got, ref, limits["trace_points"]), "side_s": t1 - t0,
-                  "reference_s": t2 - t1, "arrays": {"got": got, "ref": ref}}
+                  "numbers": op.readings(got, ref), "side_s": t1 - t0, "reference_s": t2 - t1,
+                  "arrays": {"got": got, "ref": ref}}
         if side == "program":
-            record["faults"] = {name: check.readings(plant(got, sample, n), ref, limits["trace_points"])
-                                for name, plant in FAULTS.items()}
+            record["faults"] = {name: op.readings(plant(got, sample, op.rows_per_call), ref)
+                                for name, plant in op.faults.items()}
+        del op
         yield record
 
 

@@ -63,10 +63,10 @@ def main(argv=None) -> int:
     found = {}
     read = trace.read
 
-    def read_and_split(prof, kernel):
+    def read_and_split(prof, kernels):
         events = trace._events(prof)
         found.update(idle_split(events))
-        return read(prof, kernel)
+        return read(prof, kernels)
 
     trace.read = read_and_split
     rc = run.main(argv)

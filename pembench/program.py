@@ -21,10 +21,11 @@ WAIT = "htpem.wait."
 SLACK_NS = 1000
 
 
-def call_spans(ctx: dict) -> list | None:
-    """The spans of each completed call of the window that holds its
-    ``htpem.predict`` span, as lists of (name, start_ns, end_ns, counter
-    changes); None where the program keeps no such record or no call has one."""
+def call_spans(ctx: dict, outer: str = PREDICT) -> list | None:
+    """The spans of each completed call of the window that holds a span named
+    ``outer`` (the span of the program's entry that the call drives), as lists
+    of (name, start_ns, end_ns, counter changes); None where the program keeps
+    no such record or no call has one."""
     record = getattr(sys.modules.get(MODULE), "spans", None)
     if record is None:
         return None
@@ -36,7 +37,7 @@ def call_spans(ctx: dict) -> list | None:
             continue
         a, b = round((c["end"] - c["wall_s"]) * 1e9) - SLACK_NS, round(c["end"] * 1e9) + SLACK_NS
         inside = [s for s in held[bisect.bisect_left(starts, a):bisect.bisect_right(starts, b)] if s[2] <= b]
-        if any(s[0] == PREDICT for s in inside):
+        if any(s[0] == outer for s in inside):
             out.append(inside)
     return out or None
 

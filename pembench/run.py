@@ -1,25 +1,66 @@
-"""Benchmark of hallthrusterpem_tpu_torch on one NVIDIA H100: the pem_v0
-coupled system (cathode -> 1-D discharge -> plume) through ``System.predict``.
+"""Benchmark of hallthrusterpem_tpu_torch on one NVIDIA H100: a configuration
+of the port driven by a closed loop of one client, each call timed, traced and
+checked against a plain reference.
 
     python3 pembench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Everything is found by name from ``BENCHMARK.json`` at the root of the
 checkout: the cell's configuration (``pembench/configs/<config>.json``, a
-frozen System file with its source, cuts and work count), its traffic mix
-(``pembench/traffic/<traffic>.json``, read by :mod:`pembench.traffic`), each
-metric's reader (``pembench/metrics/<name before the first dot>.py``), the
-configuration's plain reference (``pembench/reference/<reference>.py``) and the
-cell's limits (``pembench/limits/<cell>.json``).
+frozen file with its source, cuts and work count), its traffic mix
+(``pembench/traffic/<traffic>.json``), the operation that the configuration
+names (``pembench/operations/<operation>.py``; ``predict`` where it names
+none), each metric's reader (``pembench/metrics/<name before the first
+dot>.py``), the configuration's plain reference
+(``pembench/reference/<reference>.py``) and the cell's limits
+(``pembench/limits/<cell>.json``, ``{"sample_rows", "limits": {name: limit},
+...}``, naming each number that the operation's check compares).
 
-A run loads the system on the card, makes one warm-up call at the cell's own
-shapes (the kernels are built on a checkout's first run, under ``build/``),
-then drives a closed loop of one client for ``--seconds``: each call is issued
-when the last has returned and ended by a synchronise. With ``--trace 1`` the
-window runs under ``torch.profiler`` and the line gives the per-layer metrics;
-with ``--trace 0`` it gives the end-to-end ones. After the window one call,
-drawn from the seed, is checked: a sample of its rows, drawn from the seed,
-against the plain reference on the same rows (:mod:`pembench.check`). The last
-line of standard output is the result, one JSON object.
+An operation module defines ``tiny(doc)``, the configuration at a size a CPU
+test can run, and a class ``Operation(spec, seed, device)``, made once a run
+from :func:`load_cell`'s ``spec``; making it loads the program. The class
+states
+
+- ``kernels``: substrings of the names of the card's kernels whose time the
+  traced run gives each call (``kernel_s`` in its record);
+- ``numbers``: the names of the numbers its check compares; the cell's limits
+  file names exactly these (:func:`pembench.check.judge`);
+- ``line_keys``: the keys that :meth:`line` adds to the line's ``calls``;
+- ``sides``: the sides besides ``"reference"`` that :meth:`expected` computes,
+  ``"control"`` among them (``pembench/control.py``);
+- ``faults``: name -> ``plant(got, sample, rows_per_call)``, faults planted in
+  the program's compared outputs, which ``pembench/control.py`` reads;
+
+and the object has
+
+- ``rows_per_call``: the rows of a call (``rows`` in its record);
+- ``per_call``: further fields that every call's record holds as they are;
+- ``inputs(k)``: call ``k``'s inputs, drawn from the seed (k < 0: the
+  warm-up's), before the call's clock starts;
+- ``call(inputs)``: the timed call; it returns the outputs, which the run
+  synchronises on;
+- ``counters()``: running totals, read before and after each call; the call's
+  record holds the change of each;
+- ``done(k, outputs, keep)``: after each completed call, outside its wall; it
+  keeps the outputs the check reads when ``keep`` (each kept call replaces the
+  last), and what :meth:`line` reads;
+- ``least_seconds(k, device_name)``: the least time of call ``k`` on that
+  card, or None (traced runs; ``least_s`` in its record);
+- ``kept(sample)``: once the window has closed and the peak is read, ``(k,
+  got)``: the kept call and its compared outputs on the rows ``sample`` (name
+  -> numpy array); None where no call was kept;
+- ``expected(k, sample, side="reference")``: the same outputs of call ``k``'s
+  rows ``sample`` by the plain reference, or by one of ``sides``;
+- ``readings(got, expected)``: the numbers compared, by name;
+- ``line(calls, numbers)``: its own keys of the line's ``calls`` object.
+
+A run makes the operation, calls it once at the cell's own shapes (the
+kernels are built on a checkout's first run, under ``build/``), then drives a
+closed loop of one client for ``--seconds``: each call is issued when the
+last has returned and ended by a synchronise. With ``--trace 1`` the window
+runs under ``torch.profiler`` and the line gives the per-layer metrics; with
+``--trace 0`` it gives the end-to-end ones. After the window one call, drawn
+from the seed, is checked on a sample of its rows, drawn from the seed. The
+last line of standard output is the result, one JSON object.
 
 The run fails, printing no result, without a CUDA card (``--device cpu`` is a
 dry run at a tiny size for the CPU tests, and its line says so), and when the
@@ -35,7 +76,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
-import copy  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -51,8 +91,9 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 #: top-level module names the run may not hold: JAX, and the JAX package the port began from
 FORBIDDEN = ("jax", "jaxlib", "flax", "hallthrusterpem_tpu")
-#: the kernel whose events the traced run times
-KERNEL = "kstep_kernel"
+
+#: the operation of a configuration that names none
+DEFAULT_OPERATION = "predict"
 
 parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 parser.add_argument("--workload", required=True, help="a cell's name in BENCHMARK.json")
@@ -88,19 +129,11 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> list:
             if cell in m.get("workloads", [cell] if m["moves"] in moved else [])]
 
 
-def tiny(doc: dict) -> dict:
-    """The configuration at a size a CPU test can run: 0.4 us, 20 trace points."""
-    doc = copy.deepcopy(doc)
-    thr = next(c for c in doc["components"] if c["name"] == "Thruster")
-    thr["simulation"].update(duration=4e-7, num_save=20)
-    thr["postprocess"]["average_start_time"] = 2e-7
-    return doc
-
-
 def load_cell(name: str, cpu: bool = False) -> dict:
     """Everything the benchmark finds by a cell's name: the cell, its
-    configuration (file and document; :func:`tiny` on the CPU), traffic mix,
-    limits and plain reference; None when BENCHMARK.json has no such cell."""
+    configuration (file and document; the operation's ``tiny`` on the CPU),
+    traffic mix, limits, plain reference and operation module; None when
+    BENCHMARK.json has no such cell."""
     from pembench import check
     from pembench.traffic import load_mix
 
@@ -113,14 +146,11 @@ def load_cell(name: str, cpu: bool = False) -> dict:
     with open(ROOT / config_file, encoding="utf-8") as fd:
         doc = json.load(fd)
     reference = load_module(BENCH / "reference" / f"{doc['reference']}.py", f"pembench_reference_{doc['reference']}")
-    return {"bench": bench, "cell": cell, "config_file": ROOT / config_file, "doc": tiny(doc) if cpu else doc,
-            "mix": load_mix(cell["traffic"]), "limits": check.load_limits(name), "reference": reference}
-
-
-def sized(system, doc: dict) -> None:
-    """The loaded system at the document's sizes (the dry run's tiny ones)."""
-    for comp, src in zip(system.components, doc["components"]):
-        comp.model_kwargs.update({k: src[k] for k in ("simulation", "postprocess") if k in src})
+    op = doc.get("operation", DEFAULT_OPERATION)
+    operation = load_module(BENCH / "operations" / f"{op}.py", f"pembench_operation_{op}")
+    return {"bench": bench, "cell": cell, "config_file": ROOT / config_file,
+            "doc": operation.tiny(doc) if cpu else doc, "mix": load_mix(cell["traffic"]),
+            "limits": check.load_limits(name), "reference": reference, "operation": operation}
 
 
 class CheckDraw:
@@ -159,7 +189,7 @@ def main(argv=None) -> int:
     if spec is None:
         print(f"no cell named {args.workload!r} in BENCHMARK.json", file=sys.stderr)
         return 2
-    bench, cell, doc, limits, reference = (spec[k] for k in ("bench", "cell", "doc", "limits", "reference"))
+    bench, cell, limits = (spec[k] for k in ("bench", "cell", "limits"))
 
     import torch
 
@@ -168,14 +198,7 @@ def main(argv=None) -> int:
         print(f"the cell needs {cell['chips']} CUDA card(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}: no result", file=sys.stderr)
         return 1
-    try:
-        from hallthrusterpem_tpu_torch.core.json_loader import load_system
-        from hallthrusterpem_tpu_torch.models.thruster import _kernels
-    except ImportError as err:
-        print(f"the program under test is not in this checkout ({err}): no result", file=sys.stderr)
-        return 1
-    from pembench import check, trace, work
-    from pembench.traffic import Traffic
+    from pembench import check, trace
 
     torch.set_num_threads(1)
     stages["imports"] = time.perf_counter() - T_START
@@ -183,20 +206,15 @@ def main(argv=None) -> int:
     if not cpu:
         torch.zeros(1, device=device)
     stages["cuda_context"] = time.perf_counter() - T_START
-    system = load_system(spec["config_file"], device=device)
-    stages["load_system"] = time.perf_counter() - T_START
-    if cpu:
-        sized(system, doc)
-    traffic = Traffic(doc, spec["mix"], args.seed)
-    rows_per_call = min(traffic.rows, 4) if cpu else traffic.rows
-    draw = lambda k: {n: v[:rows_per_call] for n, v in traffic.call(k).items()}
-    use_model = doc["use_model"]
-    sim_ms = float(next(c for c in doc["components"] if c["name"] == "Thruster")["simulation"]["duration"]) * 1e3
-    thruster = system["Thruster"]
+    try:
+        op = spec["operation"].Operation(spec, args.seed, device)
+    except ImportError as err:
+        print(f"the program under test is not in this checkout ({err}): no result", file=sys.stderr)
+        return 1
+    stages["load_program"] = time.perf_counter() - T_START
     sync = (lambda: torch.cuda.synchronize(device)) if not cpu else (lambda: None)
-    compared = check.COMPARED
 
-    system.predict(draw(-1), use_model=use_model)  # warm-up: builds or loads the kernels
+    op.call(op.inputs(-1))  # warm-up: builds or loads the kernels
     sync()
     stages["warm_up"] = time.perf_counter() - T_START
     prof = None
@@ -215,19 +233,18 @@ def main(argv=None) -> int:
     # ---- the window: a closed loop of one client. The call the check reads is drawn
     # from the seed as the calls complete (CheckDraw), so one call's outputs are kept.
     span = record_function if args.trace else (lambda name: contextlib.nullcontext())
-    calls, thrust, kept, failed = [], [], None, 0
+    calls, pick, failed = [], None, 0
     checked = CheckDraw(args.seed)
-    cost = lambda: sum(t for _, t in thruster.model_costs.values())
     with span(trace.WINDOW):
         t_w0 = time.perf_counter()
         k = 0
         while time.perf_counter() - t_w0 < args.seconds:
-            rows = draw(k)
-            c0, l0 = cost(), _kernels.launch_counts["kstep"]
+            rows = op.inputs(k)
+            before = op.counters()
             t_a = time.perf_counter()
             try:
                 with span(trace.CALL):
-                    out = system.predict(rows, use_model=use_model)
+                    out = op.call(rows)
                     sync()
                 ok = True
             except Exception:  # a call that raises has failed; the loop goes on
@@ -235,12 +252,13 @@ def main(argv=None) -> int:
                 out, ok, failed = {}, False, failed + 1
                 sync()
             t_b = time.perf_counter()
-            calls.append({"k": k, "ok": ok, "rows": rows_per_call, "sim_ms": sim_ms, "wall_s": t_b - t_a,
-                          "end": t_b, "thruster_s": cost() - c0, "launches": _kernels.launch_counts["kstep"] - l0})
+            after = op.counters()
+            calls.append({"k": k, "ok": ok, "rows": op.rows_per_call, **op.per_call, "wall_s": t_b - t_a, "end": t_b,
+                          **{n: after[n] - before[n] for n in after}})
             if ok:
-                thrust.append(out["T"])
-                if checked.offer():
-                    kept = (k, {n: out[n] for n in compared})
+                keep = checked.offer()
+                op.done(k, out, keep)
+                pick = k if keep else pick
             del out
             k += 1
     t_w1 = calls[-1]["end"]
@@ -250,14 +268,13 @@ def main(argv=None) -> int:
     dev_name = torch.cuda.get_device_name(device) if not cpu else "cpu"
     if prof is not None:
         prof.stop()
-        traced = trace.read(prof, KERNEL)
+        traced = trace.read(prof, op.kernels)
         del prof
         ctx.update(window_s=traced.get("window_s"), busy_s=traced.get("busy_s"))
         for c, ks in zip(calls, traced.get("kernel_s", [])):
             c["kernel_s"] = ks
         for c in calls:
-            c["least_s"] = work.least_seconds(doc["work"], c["rows"],
-                                              reference.grid_for(doc, draw(c["k"]), use_model), dev_name)
+            c["least_s"] = op.least_seconds(c["k"], dev_name)
     metrics = {}
     for m in cell_metrics(bench, cell["name"], bool(args.trace)):
         value = reader(m["name"]).read(ctx)
@@ -265,24 +282,15 @@ def main(argv=None) -> int:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
     # ---- the check, once the window has closed and the peak is read
-    numbers = {n: float("nan") for n in check.NUMBERS}
-    nonfinite = [float(1.0 - torch.isfinite(t).float().mean()) for t in thrust]
+    sample = checked.sample(op.rows_per_call, limits) if pick is not None else []
+    kept, numbers, ref_s = op.kept(sample), {}, 0.0
     if kept is not None:
-        pick, outputs = kept
-        rows = draw(pick)
-        sample = checked.sample(rows_per_call, limits)
-        got = {n: torch.as_tensor(outputs[n]).detach().to("cpu", torch.float64).numpy()[sample] for n in compared}
-        del kept, outputs, thrust
-        if not cpu:
-            torch.cuda.empty_cache()
         t_r = time.perf_counter()
-        ref = reference.predict(doc, {n: v[sample] for n, v in rows.items()}, use_model, torch.float32,
-                                device, batch=rows)
+        expected = op.expected(kept[0], sample)
         ref_s = time.perf_counter() - t_r
-        numbers = check.readings(got, ref, limits["trace_points"])
-    else:
-        pick, sample, ref_s = None, [], 0.0
-    correct, checks = check.judge(numbers, limits["limits"])
+        numbers = op.readings(kept[1], expected)
+        del kept, expected
+    correct, checks = check.judge(numbers, limits["limits"], op.numbers)
     correct = correct and failed == 0
 
     result = {"correct": bool(correct), "attempted": len(calls), "failed": failed, "metrics": metrics,
@@ -294,15 +302,9 @@ def main(argv=None) -> int:
         result["device"].update(busy_s=ctx["busy_s"], window_s=ctx["window_s"])
         result["breakdown"] = traced["breakdown"]
     result["calls"] = {
-        "rows_per_call": rows_per_call, "window_wall_s": ctx["window_wall_s"],
-        "kstep_launches_per_call": [min(c["launches"] for c in calls), max(c["launches"] for c in calls)],
-        "nonfinite_share_per_call": [min(nonfinite), sum(nonfinite) / len(nonfinite), max(nonfinite)] if nonfinite else None,
-        "setup_stages_s": stages,
-        "checked_call": pick, "checked_rows": len(sample), "reference_s": ref_s,
-        "widest_row_gap": numbers.get("widest"),
-        "card": card_line() if not cpu else None,
-        "kernel_build": {n: {"seconds": b.get("seconds"), "cached": b.get("cached")}
-                         for n, b in _kernels.build_info.items()}}
+        "rows_per_call": op.rows_per_call, "window_wall_s": ctx["window_wall_s"], **op.line(calls, numbers),
+        "setup_stages_s": stages, "checked_call": pick, "checked_rows": len(sample), "reference_s": ref_s,
+        "card": card_line() if not cpu else None}
     result["checks"] = checks
     found = forbidden_modules()
     if found:

@@ -39,6 +39,16 @@ CONFIGS = {c["name"]: json.loads((ROOT / c["file"]).read_text()) for c in SPEC["
 CELLS = {w["name"]: w for w in SPEC["workloads"]}
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+#: the configurations and cells that run the true model's ``System.predict``
+#: (the operation ``predict``), which the pem_v0 tests below read
+PREDICT_CONFIGS = sorted(c for c, doc in CONFIGS.items()
+                         if doc.get("operation", run.DEFAULT_OPERATION) == "predict")
+PREDICT_CELLS = sorted(w for w in CELLS if CELLS[w]["config"] in PREDICT_CONFIGS)
+
+
+def _operation(cell: str):
+    """The class ``Operation`` of the operation that the cell's configuration names."""
+    return run.load_cell(cell)["operation"].Operation
 
 
 def _cell_traffic(cell: str, seed: int) -> traffic.Traffic:
@@ -47,7 +57,7 @@ def _cell_traffic(cell: str, seed: int) -> traffic.Traffic:
 
 
 # ------------------------------------------------------------------------------ traffic
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", PREDICT_CELLS)
 def test_traffic_is_the_same_for_a_seed_and_has_the_stated_rows(cell):
     seed = 2**31 + 977
     a, b, other = _cell_traffic(cell, seed), _cell_traffic(cell, seed), _cell_traffic(cell, seed + 1)
@@ -62,7 +72,7 @@ def test_traffic_is_the_same_for_a_seed_and_has_the_stated_rows(cell):
     assert any(not np.array_equal(a.call(3)[n], other.call(3)[n]) for n in inputs)
 
 
-@pytest.mark.parametrize("cell", sorted(CELLS))
+@pytest.mark.parametrize("cell", PREDICT_CELLS)
 def test_traffic_rows_lie_in_their_domains(cell):
     t = _cell_traffic(cell, 12345)
     inputs = traffic.exogenous_inputs(CONFIGS[CELLS[cell]["config"]])
@@ -126,7 +136,7 @@ def test_labelling_rows_are_drawn_as_the_workflow_draws_them():
 
 
 # --------------------------------------------------------------------------- work count
-@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("config", PREDICT_CONFIGS)
 def test_work_count_matches_the_frozen_count(config):
     doc = CONFIGS[config]
     rows = _cell_traffic(next(w for w in CELLS if CELLS[w]["config"] == config), 4).call(0)
@@ -164,7 +174,7 @@ def test_benchmark_names_units_and_links():
     for w in SPEC["workloads"]:
         assert w["chips"] == 1 and len(w["why"]) <= 200 and w["config"] in CONFIGS
         assert (BENCH / "traffic" / f"{w['traffic']}.json").exists()
-        assert set(check.load_limits(w["name"])["limits"]) == set(check.NUMBERS)
+        assert set(check.load_limits(w["name"])["limits"]) == set(_operation(w["name"]).numbers)
         assert len(run.cell_metrics(SPEC, w["name"], False)) >= 2 and run.cell_metrics(SPEC, w["name"], True)
     for c in SPEC["configs"]:
         assert c["file"].startswith("pembench/") and set(c["reduced"]) == set(CONFIGS[c["name"]]["reduced"])
@@ -198,7 +208,7 @@ def test_nothing_of_pembench_imports_jax_and_the_reference_nothing_of_the_port()
     for path in [*(BENCH / "reference").glob("*.py"), BENCH / "check.py", BENCH / "traffic.py", BENCH / "work.py"]:
         assert "hallthrusterpem_tpu_torch" not in _imports(path), path
     code = ("import json, sys; sys.path.insert(0, {root!r}); from pembench.reference import pem_v0; "
-            "from pembench.run import tiny; import numpy as np; "
+            "from pembench.operations.predict import tiny; import numpy as np; "
             "doc = tiny(json.load(open({cfg!r}))); "
             "rows = {{v['name']: np.full(2, float(v['nominal']), np.float32) for c in doc['components'] "
             "for v in c['inputs'] if 'nominal' in v}}; "
@@ -223,6 +233,16 @@ def _dry_run(cell: str, seed: int, trace: int = 0, cwd: Path = ROOT, env=None) -
     return _last_line(out.stdout)
 
 
+#: the keys of a dry-run line, the keys of its ``calls`` object that the run
+#: itself gives, and those of a ``predict`` cell's ``calls`` (as before operations)
+LINE_KEYS = {"correct", "attempted", "failed", "metrics", "device", "dry_run", "calls", "checks"}
+RUN_CALLS_KEYS = {"rows_per_call", "window_wall_s", "setup_stages_s", "checked_call", "checked_rows", "reference_s",
+                  "card"}
+CALLS_KEYS = {"rows_per_call", "window_wall_s", "kstep_launches_per_call", "nonfinite_share_per_call",
+              "setup_stages_s", "checked_call", "checked_rows", "reference_s", "widest_row_gap", "card",
+              "kernel_build"}
+
+
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_dry_run_prints_a_result_line_of_the_contracts_shape(cell):
     line = _dry_run(cell, 2**31 + 5, trace=0)
@@ -233,11 +253,16 @@ def test_dry_run_prints_a_result_line_of_the_contracts_shape(cell):
     assert all(v["value"] > 0 for v in line["metrics"].values())
     assert set(line["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
     assert line["device"]["platform"] == "cpu" and "dry_run" in line
-    assert set(line["checks"]) == set(check.NUMBERS)
+    op = _operation(cell)
+    assert set(line["checks"]) == set(op.numbers) and list(line["checks"]) == list(check.load_limits(cell)["limits"])
+    assert set(line) == LINE_KEYS and set(line["calls"]) == RUN_CALLS_KEYS | set(op.line_keys)
+    if cell in PREDICT_CELLS:
+        assert set(line["checks"]) == set(check.NUMBERS) and set(line["calls"]) == CALLS_KEYS
 
 
 def test_traced_dry_run_reads_the_host_layers():
     line = _dry_run("a22_mcmc_eval", 17, trace=1)
+    assert set(line) == LINE_KEYS | {"breakdown"} and set(line["calls"]) == CALLS_KEYS
     assert "system_glue_ms.eval" in line["metrics"] and "device_idle_pct.eval" in line["metrics"]
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     assert line["device"]["window_s"] > 0
@@ -265,8 +290,13 @@ def test_a_cell_configuration_mix_and_metric_added_as_files(tmp_path):
     shutil.copytree(BENCH, tmp_path / "pembench", ignore=shutil.ignore_patterns("__pycache__"))
     before = {p.relative_to(tmp_path): p.read_bytes() for p in (tmp_path / "pembench").rglob("*") if p.is_file()}
     spec = json.loads(json.dumps(SPEC))
-    doc = json.loads(json.dumps(CONFIGS["spt100_pem_v0_a00"]))
+    doc = dict(json.loads(json.dumps(CONFIGS["spt100_pem_v0_a00"])), operation="predict_marked")
     (tmp_path / "pembench/configs/spt100_pem_v0_a00_copy.json").write_text(json.dumps(doc))
+    (tmp_path / "pembench/operations/predict_marked.py").write_text(
+        "from pembench.operations.predict import Operation as Predict, tiny  # noqa: F401\n\n\n"
+        "class Operation(Predict):\n"
+        "    def line(self, calls, numbers):\n"
+        "        return {**super().line(calls, numbers), 'operation': 'predict_marked'}\n")
     (tmp_path / "pembench/traffic/two_nominal_rows.json").write_text(json.dumps({"rows_per_call": 2, "rest": "nominal"}))
     (tmp_path / "pembench/metrics/calls_done.py").write_text("def read(ctx):\n    return float(len(ctx['calls']))\n")
     (tmp_path / "pembench/limits/added_cell.json").write_text((BENCH / "limits/a00_labelling.json").read_text())
@@ -280,10 +310,109 @@ def test_a_cell_configuration_mix_and_metric_added_as_files(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     line = _dry_run("added_cell", 3, cwd=tmp_path, env=env)
     assert line["correct"] is True and line["metrics"]["calls_done"]["value"] == line["attempted"]
-    assert line["calls"]["rows_per_call"] == 2
+    assert line["calls"]["rows_per_call"] == 2 and line["calls"]["operation"] == "predict_marked"
     after = {p.relative_to(tmp_path): p.read_bytes() for p in (tmp_path / "pembench").rglob("*") if p.is_file()
              and "__pycache__" not in p.parts}
     assert all(after[p] == b for p, b in before.items() if "__pycache__" not in p.parts)
+
+
+# ------------------------------------------------------------ an operation of its own
+MLP_LIMITS = {"sample_rows": 16, "limits": {"output_gap": 1e-5, "nonfinite_mismatch": 0.0}}
+#: the cells of the copied tree: the MLP, and the MLP with a fault planted where its output is produced
+MLP_CELLS = ("mlp_test", "mlp_test_off")
+
+
+@pytest.fixture(scope="module")
+def mlp_tree(tmp_path_factory) -> Path:
+    """A copy of the benchmark to which only files and entries are added, as a
+    later configuration would add them: the test-only operation
+    ``pembench/tests/mlp_operation.py`` and its reference, its configurations,
+    traffic, limits and per-layer reader, and two cells in BENCHMARK.json that
+    report the existing ``eval_ms``, ``eval_p90_ms`` and ``solve_mfu_pct.eval``."""
+    root = tmp_path_factory.mktemp("mlp")
+    bench = root / "pembench"
+    shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(BENCH / "tests" / "mlp_operation.py", bench / "operations" / "mlp_test.py")
+    shutil.copy(BENCH / "tests" / "mlp_reference.py", bench / "reference" / "mlp_test.py")
+    (bench / "operations" / "mlp_test_off.py").write_text(
+        "from pembench.operations.mlp_test import Operation as Sound, tiny  # noqa: F401\n\n\n"
+        "class Operation(Sound):\n"
+        "    def call(self, x):  # every row's first output 1% off where it is produced\n"
+        "        out = super().call(x).clone()\n"
+        "        out[:, 0] *= 1.01\n"
+        "        return out\n")
+    (bench / "metrics" / "mlp_forward_ms.py").write_text(
+        "from pembench.operations.mlp_test import read  # noqa: F401\n")
+    (bench / "traffic" / "mlp_test.json").write_text(json.dumps({"rows_per_call": 64}))
+    spec = json.loads(json.dumps(SPEC))
+    for name in MLP_CELLS:
+        doc = {"operation": name, "reference": "mlp_test", "reduced": [], "widths": [21, 64, 36],
+               "peaks": {"cpu": [1e11, 1e10]}}
+        (bench / "configs" / f"{name}.json").write_text(json.dumps(doc))
+        (bench / "limits" / f"{name}.json").write_text(json.dumps(MLP_LIMITS))
+        spec["configs"].append({"name": name, "source": "https://example.org/mlp", "reduced": [],
+                                "file": f"pembench/configs/{name}.json", "why": "a test configuration"})
+        spec["workloads"].append({"name": name, "config": name, "traffic": "mlp_test", "chips": 1,
+                                  "why": "a test cell"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if m["name"] in ("eval_ms", "eval_p90_ms", "solve_mfu_pct.eval"):
+            m["workloads"] += list(MLP_CELLS)
+    spec["per_layer"].append({"name": "mlp_forward_ms", "unit": "ms", "better": "lower", "source": "program_span",
+                              "layer": "MLP", "moves": "eval_ms", "workloads": list(MLP_CELLS)})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return root
+
+
+def _mlp_run(tree: Path, cell: str, trace: int = 0) -> dict:
+    return _dry_run(cell, 2**31 + 41, trace=trace, cwd=tree, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+
+
+def test_an_operation_of_its_own_runs_is_timed_and_is_checked(mlp_tree):
+    line = _mlp_run(mlp_tree, "mlp_test")
+    assert line["correct"] is True and line["failed"] == 0 and line["attempted"] > 1
+    assert set(line["metrics"]) == {"eval_ms", "eval_p90_ms", "setup_s"}
+    assert all(v["value"] > 0 for v in line["metrics"].values())
+    assert set(line["checks"]) == set(MLP_LIMITS["limits"]) and line["checks"]["output_gap"]["value"] < 1e-6
+    assert set(line["calls"]) == RUN_CALLS_KEYS | {"widths"}
+    assert line["calls"]["widths"] == [21, 64, 36] and line["calls"]["checked_rows"] == 16
+
+
+def test_an_operation_of_its_own_is_traced_by_its_own_span(mlp_tree):
+    line = _mlp_run(mlp_tree, "mlp_test", trace=1)
+    assert line["correct"] is True
+    # its outer span is read; the pem_v0 readers of htpem.predict are not the cell's
+    assert set(line["metrics"]) == {"mlp_forward_ms", "solve_mfu_pct.eval"}
+    assert line["metrics"]["mlp_forward_ms"]["value"] > 0 and line["metrics"]["solve_mfu_pct.eval"]["value"] > 0
+
+
+def test_a_fault_in_an_operation_of_its_own_fails_its_check(mlp_tree):
+    line = _mlp_run(mlp_tree, "mlp_test_off")
+    assert line["correct"] is False and line["checks"]["output_gap"]["value"] > 1e-3
+
+
+@pytest.mark.parametrize("side", ["program", "control"])
+def test_the_control_of_an_operation_of_its_own_fails_its_check(mlp_tree, side):
+    out = subprocess.run([sys.executable, str(mlp_tree / "pembench" / "control.py"), "--workload", "mlp_test",
+                          "--seeds", "5,6", "--side", side, "--device", "cpu"], capture_output=True, text=True,
+                         timeout=300, cwd=mlp_tree, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    records = [json.loads(x) for x in out.stdout.strip().splitlines()]
+    assert [r["seed"] for r in records] == [5, 6] and all(r["rows"] == 16 for r in records)
+    judged = [check.judge(r["numbers"], MLP_LIMITS["limits"], tuple(MLP_LIMITS["limits"]))[0] for r in records]
+    assert judged == [side == "program"] * 2, records
+
+
+def test_judge_takes_the_numbers_of_the_operation():
+    names = ("a", "b")
+    assert check.judge({"a": 0.0, "b": 1.0}, {"a": 0.5, "b": 2.0}, names)[0]
+    assert not check.judge({"a": 0.0, "b": 3.0}, {"a": 0.5, "b": 2.0}, names)[0]
+    # a limits file that leaves out a number the operation computes, names another, or none
+    correct, checks = check.judge({"a": 0.0, "b": 1.0}, {"a": 0.5}, names)
+    assert not correct and list(checks) == ["a", "b"] and np.isnan(checks["b"]["limit"])
+    correct, checks = check.judge({"a": 0.0, "b": 1.0}, {"a": 0.5, "b": 2.0, "c": 1.0}, names)
+    assert not correct and np.isnan(checks["c"]["value"])
+    assert not check.judge({"a": 0.0, "b": 1.0}, {}, names)[0]
+    assert not check.judge({}, {}, ())[0]
 
 
 # ----------------------------------------------------------------------- the check
@@ -291,9 +420,9 @@ def test_a_cell_configuration_mix_and_metric_added_as_files(tmp_path):
 def test_the_control_fails_the_check(cell):
     from pembench import control
 
-    limits = check.load_limits(cell)["limits"]
+    limits, names = check.load_limits(cell)["limits"], _operation(cell).numbers
     for record in control.readings(cell, [2**31 + 11], "control", device="cpu"):
-        assert not check.judge(record["numbers"], limits)[0], record
+        assert not check.judge(record["numbers"], limits, names)[0], record
 
 
 def _faulty_run(cell, capsys, monkeypatch, fault) -> dict:

@@ -23,7 +23,11 @@ sys.path.insert(0, str(ROOT))
 from pembench import idle_split, program, run, trace  # noqa: E402
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = sorted(w["name"] for w in SPEC["workloads"])
+_CONFIGS = {c["name"]: json.loads((ROOT / c["file"]).read_text()) for c in SPEC["configs"]}
+#: the cells whose configuration runs the true model's ``System.predict``, which
+#: opens the spans that these metrics read
+CELLS = sorted(w["name"] for w in SPEC["workloads"]
+               if _CONFIGS[w["config"]].get("operation", run.DEFAULT_OPERATION) == "predict")
 #: the per-layer metrics that read the program's record
 PROGRAM_METRICS = ("system_host_ms", "thruster_host_ms", "launch_host_us", "rows_masked_pct")
 
@@ -97,6 +101,9 @@ def test_spans_are_put_against_the_calls_that_hold_them(monkeypatch):
     # predict 11-49 us, less the Thruster and the wait, 12-47
     assert program.host_outside(calls[0], program.PREDICT, program.THRUSTER, program.WAIT) == 3 * us
     assert program.counted(calls, "kstep_blocks") == 3 and program.counted(calls, "rows_masked") == 1
+    # another outer span: the calls that hold one
+    assert program.call_spans(ctx, program.LAUNCHES) == calls
+    assert program.call_spans(ctx, "htpem.mlp.forward") is None
     for name, value in (("system_host_ms", 3e-3), ("thruster_host_ms", 5e-3), ("launch_host_us", 0.03),
                         ("rows_masked_pct", 25.0)):
         assert run.reader(name).read(ctx) == pytest.approx(value)
@@ -108,6 +115,22 @@ def test_no_record_reads_none(monkeypatch):
     assert program.call_spans(ctx) is None
     for name in PROGRAM_METRICS:
         assert run.reader(name).read(ctx) is None
+
+
+def test_trace_times_the_kernels_that_the_operation_names(monkeypatch):
+    """Each call's time in the card's kernels whose name holds one of the
+    operation's substrings: one, as the pem_v0 cells give it, or several."""
+    us = 1000
+    ev = [(trace.WINDOW, False, 0, 100 * us), (trace.CALL, False, 5 * us, 45 * us),
+          (trace.CALL, False, 50 * us, 95 * us), ("void kstep_kernel<3, 1, 224>", True, 10 * us, 20 * us),
+          ("sm90_xmma_gemm_f32f32_f32_tn_n", True, 25 * us, 30 * us),
+          ("ampere_sgemm_128x64_nn", True, 60 * us, 70 * us), ("elementwise_kernel", True, 72 * us, 73 * us),
+          ("cutlass_80_simt_sgemm_64x64_8x5_nn_align1", True, 80 * us, 84 * us)]
+    monkeypatch.setattr(trace, "_events", lambda prof: ev)
+    assert trace.read(None, ("kstep_kernel",))["kernel_s"] == pytest.approx([10e-6, 0.0])
+    got = trace.read(None, ("gemm",))
+    assert got["kernel_s"] == pytest.approx([5e-6, 14e-6]) and got["busy_s"] == pytest.approx(30e-6)
+    assert trace.read(None, ("kstep_kernel", "xmma"))["kernel_s"] == pytest.approx([15e-6, 0.0])
 
 
 def test_idle_split_adds_up_to_the_idle_time():

@@ -1,7 +1,7 @@
 """What the traced run reads from ``torch.profiler``: the card's busy time over
 the window (the union of its kernel, copy and set intervals), each call's time
-in kernels of a given name, the operations that took most of the card's time,
-and the card's idle gaps by what the host was doing meanwhile."""
+in the kernels that the operation names, the operations that took most of the
+card's time, and the card's idle gaps by what the host was doing meanwhile."""
 
 from __future__ import annotations
 
@@ -18,9 +18,10 @@ def _events(prof) -> list:
             for e in prof.profiler.kineto_results.events()]
 
 
-def read(prof, kernel: str) -> dict:
+def read(prof, kernels: tuple) -> dict:
     """The window's length and the card's busy seconds in it, each call's
-    seconds in kernels whose name holds ``kernel``, and the breakdown."""
+    seconds in kernels whose name holds one of the substrings ``kernels``,
+    and the breakdown."""
     events = _events(prof)
     host = sorted((e for e in events if not e[1]), key=lambda e: e[2])
     window = next(((s, t) for n, _, s, t in host if n == WINDOW), None)
@@ -42,7 +43,7 @@ def read(prof, kernel: str) -> dict:
     starts = [c[0] for c in calls]
     per_call = [0] * len(calls)
     for s, t, name in dev:
-        if kernel in name:
+        if any(k in name for k in kernels):
             i = bisect.bisect_right(starts, s) - 1
             if 0 <= i < len(calls) and s <= calls[i][1]:
                 per_call[i] += t - s
